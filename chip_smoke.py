@@ -7,15 +7,29 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure raises and the script exits non-zero):
   1. card and set-up: the card's name and power limit, torch and CUDA
-     versions, and the build of every kernel from ``csrc/`` with nvcc;
-  2. every kernel against its plain PyTorch version at the main path's
-     shapes (plus ragged, bf16, wide and tie cases), then timed beside
-     its bound, its plain version and one library call;
-  3. the main path: ResourceManager -> PilotManager -> Pilot ->
+     versions, and the build of every kernel from ``csrc/`` with nvcc
+     (one nvcc per source, all started together);
+  2. kmeans_assign against its plain PyTorch version at the K-Means
+     path's shapes (plus ragged, bf16, wide and tie cases), then timed
+     beside its bound, its plain version and one library call;
+  3. the K-Means path: ResourceManager -> PilotManager -> Pilot ->
      spawn_analytics_cluster -> AnalyticsEngine -> kmeans_fit on the
      paper's three K-Means scenarios at full size, both data paths,
      then one K-Means as a gang CU through the Agent;
-  4. a torch.profiler breakdown of one main-path run per scenario.
+  4. a torch.profiler breakdown of one K-Means run per scenario;
+  5. mamba_scan against its plain version at the reference's test
+     shapes, Hymba-1.5B and Falcon-Mamba-7B widths, an odd shape and
+     bf16, then timed beside its bound and its plain version;
+  6. flash_attention against its plain version at Hymba-1.5B (windowed
+     and full causal), Llama-3.2-1B, Yi-6B and SeamlessM4T-medium
+     encoder widths, a prime S, bf16 and the reference's test shapes,
+     then timed beside its bound, its plain version and
+     scaled_dot_product_attention;
+  7. the autotuner entry point, ``autotune.main`` once per kernel family
+     against a temporary registry: launches counted, a second call is a
+     cache hit, the wrappers resolve the tuned blocks, a call at them
+     matches the plain version, and K1 is bitwise equal across every
+     candidate block size.
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -24,9 +38,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -40,6 +56,45 @@ HBM_BYTES_PER_S = 3.35e12
 ITERS = 2          # the paper's K-Means iterations
 REPS = 5           # main-path repetitions per scenario and path
 TIMED_LAUNCHES = 20
+PLAIN_SCAN_REPS = 2    # the plain scan is a Python loop over S: ~0.1 s
+
+# (label, B, S, di, st, bf16, timed): the reference's test shapes
+# (tests/test_kernels.py), the Mamba widths of the repo's configs, an odd
+# shape and bf16
+SCAN_CASES = [
+    ("test 1x32x8x4", 1, 32, 8, 4, False, False),
+    ("test 2x64x16x8", 2, 64, 16, 8, False, False),
+    ("test 1x128x32x16", 1, 128, 32, 16, False, False),
+    ("st=2 3x40x16x2", 3, 40, 16, 2, False, False),
+    ("odd 1x48x24x8", 1, 48, 24, 8, False, False),
+    ("bf16 2x256x64x16", 2, 256, 64, 16, True, False),
+    ("hymba-1.5b", 1, 4096, 3200, 16, False, True),
+    ("falcon-mamba-7b", 1, 2048, 8192, 16, False, True),
+]
+# (label, B, S, H, hd, causal, window, bf16, timed): the attention widths
+# of the repo's configs (Hymba-1.5B's KV heads repeated to 25), a prime
+# S, bf16 and the reference's test shapes
+ATTN_CASES = [
+    ("hymba-1.5b windowed", 1, 4096, 25, 64, True, 2048, False, True),
+    ("hymba-1.5b full causal", 1, 4096, 25, 64, True, 0, False, True),
+    ("llama-3.2-1b", 1, 2048, 32, 64, True, 0, False, True),
+    ("yi-6b", 1, 2048, 32, 128, True, 0, False, True),
+    ("seamless-m4t-medium encoder", 1, 1024, 16, 64, False, 0, False, True),
+    ("prime S=1021", 1, 1021, 4, 64, True, 256, False, False),
+    ("bf16 llama-3.2-1b", 1, 2048, 32, 64, True, 0, True, False),
+    ("bf16 hymba windowed", 1, 4096, 25, 64, True, 2048, True, False),
+] + [(f"test {B}x{S}x{H}x{hd} c{int(c)} w{w}", B, S, H, hd, c, w, False,
+      False)
+     for B, S, H, hd in ((1, 128, 2, 32), (2, 256, 4, 64), (1, 512, 1, 128))
+     for c, w in ((True, 0), (True, 64), (False, 0))]
+# phase 7's shapes: Hymba-1.5B's windowed attention and its Mamba width,
+# the paper's 10k x 5000 K-Means
+TUNE_SHAPES = {
+    "flash_attention": {"B": 1, "H": 25, "S_q": 4096, "S_k": 4096, "hd": 64,
+                        "causal": 1, "window": 2048},
+    "mamba_scan": {"B": 1, "S": 4096, "di": 3200, "st": 16},
+    "kmeans": {"n": 10_000, "k": 5_000, "d": 3},
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -82,6 +137,71 @@ def assign_bound(n: int, k: int, d: int) -> dict:
             "t_ops": t_ops}
 
 
+def bound_of(nbytes: float, flops: float) -> dict:
+    """The least time on the card: bytes over the memory rate or FP32
+    operations over the FP32 peak, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return {"bytes": nbytes, "flops": flops, "t_bytes": t_bytes,
+            "t_ops": t_ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def scan_bound(B: int, S: int, di: int, st: int, es: int) -> dict:
+    """a, b, C, h0 read once (es bytes each), y and h_last written once
+    (f32); one FMA for the recurrence and one for the readout per
+    element of a."""
+    nbytes = es * (2 * B * S * di * st + B * S * st + B * di * st) \
+        + 4 * (B * S * di + B * di * st)
+    return bound_of(nbytes, 4 * B * S * di * st)
+
+
+def live_pairs(S_q: int, S_k: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave live: what this run's data
+    needs, with positions from 0 on both sides."""
+    import numpy as np
+    r = np.arange(S_q)
+    hi = np.minimum(r + 1, S_k) if causal else np.full(S_q, S_k)
+    lo = np.maximum(r - window + 1, 0) if window else np.zeros(S_q, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_bound(B, S_q, S_k, H, hd, causal, window, es) -> dict:
+    """q, k, v read once and o written once; QK^T and PV cost 2 FMAs a
+    head dim for every live pair (FP32 FMAs, bf16 included: the kernel
+    upcasts)."""
+    nbytes = es * B * H * hd * (2 * S_q + 2 * S_k)
+    flops = 4 * hd * B * H * live_pairs(S_q, S_k, causal, window)
+    return bound_of(nbytes, flops)
+
+
+def held(torch, got, want, tol: float, label: str) -> float:
+    """|got - want| <= tol + tol * |want| everywhere (the reference's
+    allclose); returns the max |error|."""
+    err = (got.float() - want.float()).abs()
+    check(bool(torch.isfinite(got.float()).all()), f"{label}: non-finite")
+    check(bool((err <= tol + tol * want.float().abs()).all()),
+          f"{label}: max |err| {err.max().item():.3e} over rtol/atol {tol}")
+    return err.max().item()
+
+
+def sdpa_call(torch, q, k, v, causal: bool, window: int):
+    """The library yardstick: one scaled_dot_product_attention call on
+    the same inputs and mask, with the mask and the (B, H, S, hd) views
+    made beforehand (timed here only; the port never calls it)."""
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if not window:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+    S_q, S_k = q.shape[1], k.shape[1]
+    qp = torch.arange(S_q, device=q.device)[:, None]
+    kp = torch.arange(S_k, device=q.device)[None, :]
+    mask = (qp - kp) < window
+    if causal:
+        mask &= qp >= kp
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
 def compare_assign(torch, ops, ref, p, c, label: str) -> float:
     """Kernel vs plain version on the same inputs; returns max |err|."""
     ik, dk = ops.assign(p, c)
@@ -101,7 +221,8 @@ def compare_assign(torch, ops, ref, p, c, label: str) -> float:
     return err.max().item()
 
 
-def first_iteration_flips(torch, km_kernel, ref, pts, centroids) -> int:
+def first_iteration_flips(torch, km_kernel, ref, pts, centroids,
+                          blocks: dict) -> int:
     """Points the kernel and the plain version assign differently from
     the same centroids.  Each must be a tie by distance: the two
     choices' float64 squared distances agree within the comparison's
@@ -110,7 +231,7 @@ def first_iteration_flips(torch, km_kernel, ref, pts, centroids) -> int:
     n = pts.shape[0]
     idx = torch.empty(n, dtype=torch.int32, device=pts.device)
     part = torch.empty(n, dtype=torch.float32, device=pts.device)
-    km_kernel.assign_cuda(pts, centroids, idx, part)
+    km_kernel.assign_cuda(pts, centroids, idx, part, **blocks)
     plain_idx, _ = ref.assign(pts, centroids)
     diff = (idx != plain_idx).nonzero()[:, 0]
     p64 = pts[diff].double()
@@ -180,34 +301,262 @@ def numpy_lloyd(pts, init, iters: int) -> float:
     return float(cost)
 
 
+def randn(torch, gen, dev, *size, scale=1.0, dtype=None):
+    return (scale * torch.randn(*size, generator=gen, device=dev)).to(dtype)
+
+
+def scan_inputs(torch, gen, dev, B, S, di, st, dtype):
+    """Decays in (0.7, 0.999) like exp(dt * A) with A < 0, as the
+    reference's tests draw them."""
+    a = (0.7 + 0.299 * torch.rand(B, S, di, st, generator=gen, device=dev)
+         ).to(dtype)
+    return (a, randn(torch, gen, dev, B, S, di, st, scale=0.1, dtype=dtype),
+            randn(torch, gen, dev, B, S, st, dtype=dtype),
+            randn(torch, gen, dev, B, di, st, scale=0.1, dtype=dtype))
+
+
+def attn_inputs(torch, gen, dev, B, S, H, hd, dtype):
+    return (randn(torch, gen, dev, B, S, H, hd, scale=0.3, dtype=dtype),
+            randn(torch, gen, dev, B, S, H, hd, scale=0.3, dtype=dtype),
+            randn(torch, gen, dev, B, S, H, hd, dtype=dtype))
+
+
+def phase_scan(torch, dev):
+    """5. K3 against its plain version (rtol/atol 1e-4 on y and h_last,
+    the reference's tolerance), timed at the configs' widths."""
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+    print("phase 5: mamba_scan against its plain version")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    max_err, rows = 0.0, []
+    for label, B, S, di, st, bf16, timed in SCAN_CASES:
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        args = scan_inputs(torch, gen, dev, B, S, di, st, dtype)
+        y, h = ms_ops.scan(*args)
+        yr, hr = ms_ref.scan(*args)
+        torch.cuda.synchronize()
+        check(y.dtype == h.dtype == torch.float32
+              and tuple(y.shape) == (B, S, di)
+              and tuple(h.shape) == (B, di, st), f"{label}: bad outputs")
+        err = max(held(torch, y, yr, 1e-4, f"{label} y"),
+                  held(torch, h, hr, 1e-4, f"{label} h_last"))
+        max_err = max(max_err, err)
+        line = f"  {label} {dtype}: max |err| {err:.3e}"
+        if timed:
+            # kernel, plain, kernel: in turns on one card
+            t_k = cuda_ms(torch, lambda: ms_ops.scan(*args))
+            t_p = cuda_ms(torch, lambda: ms_ref.scan(*args), PLAIN_SCAN_REPS)
+            t_k = min(t_k, cuda_ms(torch, lambda: ms_ops.scan(*args)))
+            bound = scan_bound(B, S, di, st, args[0].element_size())
+            rows.append({"shape": label, "B": B, "S": S, "di": di, "st": st,
+                         "dtype": str(dtype), "ms": t_k, "plain_ms": t_p,
+                         "library_ms": None, **bound})
+            line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+                     f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                     f"{bound['bytes'] / t_k / 1e9:.3f} TB/s")
+        print(line)
+        del args, y, h, yr, hr
+    return max_err, rows
+
+
+def phase_attention(torch, dev):
+    """6. K2 against its plain version (2e-4 for f32, 5e-2 for bf16, the
+    reference's tolerances), timed at the configs' widths beside
+    scaled_dot_product_attention."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    print("phase 6: flash_attention against its plain version")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    max_err, rows = {"float32": 0.0, "bfloat16": 0.0}, []
+    for label, B, S, H, hd, causal, window, bf16, timed in ATTN_CASES:
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        q, k, v = attn_inputs(torch, gen, dev, B, S, H, hd, dtype)
+        mask = {"causal": causal, "window": window}
+        o = fa_ops.attention(q, k, v, **mask)
+        r = fa_ref.attention(q, k, v, **mask)
+        torch.cuda.synchronize()
+        check(o.dtype == dtype and o.shape == q.shape, f"{label}: bad output")
+        err = held(torch, o, r, 5e-2 if bf16 else 2e-4, label)
+        name = str(dtype).removeprefix("torch.")
+        max_err[name] = max(max_err[name], err)
+        line = f"  {label} {dtype}: max |err| {err:.3e}"
+        if timed:
+            # kernel, plain, library, kernel, plain: in turns on one card
+            t_k = cuda_ms(torch, lambda: fa_ops.attention(q, k, v, **mask))
+            t_p = cuda_ms(torch, lambda: fa_ref.attention(q, k, v, **mask))
+            library = sdpa_call(torch, q, k, v, **mask)
+            t_l = cuda_ms(torch, library)
+            t_k = min(t_k, cuda_ms(torch,
+                                   lambda: fa_ops.attention(q, k, v, **mask)))
+            t_p = min(t_p, cuda_ms(torch,
+                                   lambda: fa_ref.attention(q, k, v, **mask)))
+            lib_err = (library().transpose(1, 2) - r).abs().max().item()
+            bound = attention_bound(B, S, S, H, hd, causal, window,
+                                    q.element_size())
+            rows.append({"shape": label, "B": B, "S": S, "H": H, "hd": hd,
+                         **mask, "dtype": str(dtype), "ms": t_k,
+                         "plain_ms": t_p, "library_ms": t_l,
+                         "library_max_abs_err": lib_err, **bound})
+            line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa "
+                     f"{t_l:.4f} ms (|err| {lib_err:.1e}), bound "
+                     f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                     f"{bound['flops'] / t_k / 1e9:.2f} TFLOP/s")
+        print(line)
+        del q, k, v, o, r
+    return max_err, rows
+
+
+def phase_autotune(torch, dev, compare_kmeans):
+    """7. The autotuner entry point, once per family, with every kernel's
+    launch count set to 0 just before and read just after."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.kmeans import ops as km_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+    print("phase 7: the autotuner entry point, autotune.main per family")
+    counters = {"flash_attention": fa_ops, "mamba_scan": ms_ops,
+                "kmeans": km_ops}
+    argv = {fam: [fam, "--shapes", json.dumps(shape), "--reps", "5"]
+            for fam, shape in TUNE_SHAPES.items()}
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    recs, walls = {}, {}
+    for fam in TUNE_SHAPES:
+        t0 = time.perf_counter()
+        recs[fam] = autotune.main(argv[fam])[0]
+        torch.cuda.synchronize()
+        walls[fam] = time.perf_counter() - t0
+    launches = {fam: mod.LAUNCHES for fam, mod in counters.items()}
+    for fam, rec in recs.items():
+        check(launches[fam] > 0 and rec["trials"] > 0 and not rec["cached"],
+              f"{fam}: the tuner ran {rec['trials']} trials and "
+              f"{launches[fam]} launches")
+        check(rec["speedup_vs_default"] >= 1.0 - 1e-9,
+              f"{fam}: the winner is slower than the default")
+        rec["wall_s"] = walls[fam]
+        print(f"  {fam}: {walls[fam]:.3f} s wall, {rec['trials']} trials, "
+              f"{launches[fam]} launches; "
+              f"tuned {rec['config']}, {rec['speedup_vs_default']:.4f}x vs "
+              f"default {rec['default_config']} ({1e3 * rec['best_s']:.4f} "
+              f"vs {1e3 * rec['default_s']:.4f} ms)")
+    for fam in TUNE_SHAPES:                # 2. a cache hit, 0 trials
+        again = autotune.main(argv[fam])[0]
+        check(again["cached"] and again["trials"] == 0
+              and again["config"] == recs[fam]["config"],
+              f"{fam}: the second call was not a cache hit")
+    check({fam: mod.LAUNCHES for fam, mod in counters.items()} == launches,
+          "a cache hit launched a kernel")
+    f32 = torch.float32
+    fs, ms, ks = (TUNE_SHAPES[f] for f in ("flash_attention", "mamba_scan",
+                                           "kmeans"))
+    resolved = {                           # 3. the wrappers find the entry
+        "flash_attention": fa_ops.resolve_blocks(
+            fs["S_q"], fs["S_k"], fs["hd"], f32, dev, None, None),
+        "mamba_scan": ms_ops.resolve_blocks(ms["S"], ms["di"], ms["st"], f32,
+                                            dev, None, None),
+        "kmeans": km_ops.resolve_blocks(ks["n"], ks["k"], ks["d"], f32, dev,
+                                        None, None)}
+    for fam, got in resolved.items():
+        check(got == tuple(recs[fam]["config"].values()),
+              f"{fam}: the wrapper resolves {got}, the tuner chose "
+              f"{recs[fam]['config']}")
+    print(f"  a second call per family: cache hit, 0 trials; the wrappers "
+          f"resolve {resolved}")
+    # 4. one call at the tuned blocks still matches the plain version
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = attn_inputs(torch, gen, dev, fs["B"], fs["S_q"], fs["H"],
+                          fs["hd"], f32)
+    mask = {"causal": bool(fs["causal"]), "window": fs["window"]}
+    err = held(torch, fa_ops.attention(q, k, v, **mask),
+               fa_ref.attention(q, k, v, **mask), 2e-4, "tuned attention")
+    args = scan_inputs(torch, gen, dev, ms["B"], ms["S"], ms["di"], ms["st"],
+                       f32)
+    (y, h), (yr, hr) = ms_ops.scan(*args), ms_ref.scan(*args)
+    err_s = max(held(torch, y, yr, 1e-4, "tuned scan y"),
+                held(torch, h, hr, 1e-4, "tuned scan h_last"))
+    p = torch.randn(ks["n"], ks["d"], generator=gen, device=dev)
+    c = torch.randn(ks["k"], ks["d"], generator=gen, device=dev)
+    err_k = compare_kmeans(p, c, "tuned kmeans")
+    print(f"  at the tuned blocks: attention |err| {err:.3e}, scan |err| "
+          f"{err_s:.3e}, kmeans |err| {err_k:.3e}")
+    # 5. K1 gives bitwise the same result at every candidate block size
+    base = km_ops.assign(p, c, **autotune.DEFAULTS["kmeans"])
+    cands = autotune.candidates_kmeans(ks["n"], ks["k"], ks["d"])
+    for cfg in cands:
+        got = km_ops.assign(p, c, **cfg)
+        check(torch.equal(got[0], base[0]) and torch.equal(got[1], base[1]),
+              f"kmeans at {cfg}: not bitwise equal to the default blocks")
+    print(f"  kmeans: idx and minimum bitwise equal across all {len(cands)} "
+          "candidate block sizes")
+    return launches, recs
+
+
+def kernel_entry(name, source, replaces, launches, err, rows,
+                 library: bool) -> dict:
+    """One kernel's record: times summed over its timed shapes, bound
+    from their summed bytes and operations."""
+    bound = bound_of(sum(r["bytes"] for r in rows),
+                     sum(r["flops"] for r in rows))
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": (sum(r["library_ms"] for r in rows) if library
+                           else None),
+            "shapes": rows}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # a registry of this run's own: phases 2-6 run the default blocks,
+    # and phase 7 tunes into it
+    with tempfile.TemporaryDirectory() as reg_dir:
+        os.environ["REPRO_AUTOTUNE_REGISTRY"] = os.path.join(
+            reg_dir, "autotune.json")
+        return run(torch)
+
+
+def run(torch) -> int:
     from repro_torch.analytics import kmeans as km
     from repro_torch.analytics.engine import AnalyticsEngine
     from repro_torch.core import (ComputeUnitDescription, CUState, Link,
                                   PilotDescription, PilotManager,
                                   ResourceManager)
-    from repro_torch.kernels import build
+    from repro_torch.kernels import autotune, build
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
     from repro_torch.kernels.kmeans import kmeans as km_kernel
     from repro_torch.kernels.kmeans import ops, ref
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms_k
+    from repro_torch.launch import platform
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
-    torch.backends.cudnn.allow_tf32 = False
+    platform.configure("cuda")      # TF32 off: full f32 products
     dev = torch.device("cuda", 0)
+    km_blocks = autotune.DEFAULTS["kmeans"]
 
     # ------------------------------------------------- 1. card and set-up
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
-    build_s = build.build_all([km_kernel.SOURCE])
+    sources = [km_kernel.SOURCE, fa_k.SOURCE, ms_k.SOURCE]
+    build_s = build.build_all(sources)
     print(f"kernel build: {build_s:.2f} s")
-    for line in build.build_log(km_kernel.SOURCE).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    for src in sources:
+        log = build.build_log(src).splitlines()
+        regs = [int(w.split()[0]) for line in log if "registers" in line
+                for w in [line.split("Used ")[1]]]
+        spills = sum(int(line.split("bytes spill stores")[0].split()[-1])
+                     for line in log if "spill stores" in line)
+        if regs:
+            print(f"  ptxas {src.name}: {len(regs)} kernels, "
+                  f"{min(regs)}-{max(regs)} registers, {spills} bytes of "
+                  "spill stores in all")
 
     # ------------------------------------- 2. kernel against plain version
     print("phase 2: kmeans_assign against its plain version")
@@ -229,7 +578,7 @@ def main() -> int:
         idx_out = torch.empty(n, dtype=torch.int32, device=dev)
         min_out = torch.empty(n, dtype=torch.float32, device=dev)
         t_bare = cuda_ms(torch, lambda: km_kernel.assign_cuda(
-            p, c, idx_out, min_out))
+            p, c, idx_out, min_out, **km_blocks))
         shapes.append({"shape": name, "n": n, "k": k, "d": km.PAPER_DIM,
                        "ms": t_kernel, "kernel_only_ms": t_bare,
                        "plain_ms": t_plain, "library_ms": t_lib,
@@ -284,7 +633,7 @@ def main() -> int:
             eng.put(name, km.make_dataset(n, seed=10 + s, device=home))
             flips = first_iteration_flips(
                 torch, km_kernel, ref, eng.get(name).full(),
-                km._init_centroids(eng.get(name), k, 0))
+                km._init_centroids(eng.get(name), k, 0), km_blocks)
             one = [km.kmeans_fit(eng, name, k, iters=1, use_kernel=uk)[1]
                    for uk in (True, False)]
             check(math.isclose(one[0], one[1], rel_tol=1e-4),
@@ -379,6 +728,12 @@ def main() -> int:
         pm.shutdown()
 
     check(launches > 0, "the main path launched no kmeans_assign kernel")
+
+    scan_err, scan_rows = phase_scan(torch, dev)
+    attn_err, attn_rows = phase_attention(torch, dev)
+    tuned_launches, tuned = phase_autotune(
+        torch, dev, lambda p, c, label: compare_assign(torch, ops, ref, p, c,
+                                                       label))
     t_bytes = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S
     t_ops = sum(s["flops"] for s in shapes) / FP32_FLOP_PER_S
     record = {"kernels": [{
@@ -392,9 +747,24 @@ def main() -> int:
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": sum(s["library_ms"] for s in shapes),
+        "launches_autotune": tuned_launches["kmeans"],
         "shapes": shapes,
-    }], "main_path_wall_ms": {f"{n}/{p}": 1e3 * t
+    }, kernel_entry(
+        "flash_attention",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:82",
+        tuned_launches["flash_attention"], max(attn_err.values()),
+        attn_rows, library=True) | {"max_abs_err_by_dtype": attn_err},
+        kernel_entry(
+        "mamba_scan", "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+        "src/repro/kernels/mamba_scan/mamba_scan.py:51",
+        tuned_launches["mamba_scan"], scan_err, scan_rows, library=False)],
+        "main_path_wall_ms": {f"{n}/{p}": 1e3 * t
                               for (n, p), t in walls.items()},
+        "autotune": {fam: {k: rec[k] for k in (
+            "config", "default_config", "best_s", "default_s",
+            "speedup_vs_default", "n_candidates", "wall_s")}
+            for fam, rec in tuned.items()},
         "profile": breakdown, "build_s": build_s}
     print(json.dumps(record))
     print(card)

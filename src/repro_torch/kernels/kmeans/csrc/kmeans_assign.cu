@@ -10,11 +10,15 @@
 // squared distance with the reference's arithmetic.
 //
 // Design: one thread per point, its D coordinates in registers (D is a
-// template parameter, 1..KM_MAX_D).  The block stages tiles of KM_TILE
-// centroids in shared memory, computes each tile's |c|^2 once, and each
-// thread walks the tile in increasing index keeping (best, arg) in
-// registers, replaced only on a strict `<`: that is the reference's
-// first-index tie rule.  No padding: the loops stop at n and k.
+// template parameter, 1..KM_MAX_D).  A block holds `bn` points (its
+// thread count, 1..KM_MAX_THREADS) and stages tiles of `bk` centroids in
+// dynamic shared memory (bk * (D + 1) floats, at most 48 KB), computes
+// each tile's |c|^2 once, and each thread walks the tile in increasing
+// index keeping (best, arg) in registers, replaced only on a strict `<`:
+// that is the reference's first-index tie rule.  Every point sees the
+// centroids in index order with the same arithmetic whatever (bn, bk)
+// is, so every block size gives bitwise the same index and minimum; the
+// autotuner may pick any of them.  No padding: the loops stop at n and k.
 //
 // Bound on an H100 SXM: k*(D+1) FP32 FMAs per point against 4*D + 8
 // bytes moved per point (points read, index and minimum written).  At
@@ -24,28 +28,31 @@
 // 3.35 TB/s).  Shared-memory reads are broadcasts (every thread of a warp
 // reads the same centroid), so they do not conflict.
 //
-// Known weakness: parallelism is n / KM_THREADS blocks.  The 10k x 5000
-// shape launches only ceil(10000 / 256) = 40 blocks on 132 SMs.  Splitting
+// Known weakness: parallelism is n / bn blocks.  The 10k x 5000 shape
+// launches only ceil(10000 / 256) = 40 blocks of the default bn = 256 on
+// 132 SMs.  Splitting
 // k across blocks with a second argmin pass is later work.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define KM_THREADS 256
-#define KM_TILE 256
+#define KM_MAX_THREADS 512
 #define KM_MAX_D 32
+#define KM_SMEM_MAX 49152  // bytes of dynamic shared memory without opt-in
 
 template <int D>
-__global__ void __launch_bounds__(KM_THREADS)
+__global__ void __launch_bounds__(KM_MAX_THREADS)
 kmeans_assign_kernel(const float* __restrict__ points,
                      const float* __restrict__ centroids,
-                     int n, int k,
+                     int n, int k, int bk,
                      int32_t* __restrict__ idx_out,
                      float* __restrict__ min_out) {
-  __shared__ float c_tile[KM_TILE * D];
-  __shared__ float c_norm[KM_TILE];
+  extern __shared__ float smem[];
+  float* c_tile = smem;            // (bk, D)
+  float* c_norm = smem + bk * D;   // (bk,)
+  const int bn = blockDim.x;
 
-  const int i = blockIdx.x * KM_THREADS + threadIdx.x;
+  const int i = blockIdx.x * bn + threadIdx.x;
   const bool live = i < n;
   float p[D];
 #pragma unroll
@@ -55,14 +62,14 @@ kmeans_assign_kernel(const float* __restrict__ points,
 
   float best = INFINITY;
   int arg = 0;
-  for (int t0 = 0; t0 < k; t0 += KM_TILE) {
-    const int tn = min(KM_TILE, k - t0);
+  for (int t0 = 0; t0 < k; t0 += bk) {
+    const int tn = min(bk, k - t0);
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < tn * D; e += KM_THREADS) {
+    for (int e = threadIdx.x; e < tn * D; e += bn) {
       c_tile[e] = centroids[(size_t)t0 * D + e];
     }
     __syncthreads();
-    for (int c = threadIdx.x; c < tn; c += KM_THREADS) {
+    for (int c = threadIdx.x; c < tn; c += bn) {
       float s = 0.f;
 #pragma unroll
       for (int j = 0; j < D; ++j) {
@@ -94,18 +101,25 @@ extern "C" {
 
 int kmeans_assign_max_d(void) { return KM_MAX_D; }
 
-int kmeans_assign_threads(void) { return KM_THREADS; }
+int kmeans_assign_max_threads(void) { return KM_MAX_THREADS; }
+
+int kmeans_assign_smem_max(void) { return KM_SMEM_MAX; }
 
 // points (n, d) and centroids (k, d): contiguous f32 on the current
-// device.  Writes idx_out (n,) int32 and min_out (n,) f32, the least
-// score without |p|^2.  Launches on `stream` and does not synchronise.
-// Returns cudaGetLastError() after the launch (0 on success).
+// device; bn points per block (1..KM_MAX_THREADS), bk centroids per
+// shared-memory tile (bk * (d + 1) * 4 <= KM_SMEM_MAX bytes).  Writes
+// idx_out (n,) int32 and min_out (n,) f32, the least score without
+// |p|^2.  Launches on `stream` and does not synchronise.  Returns
+// cudaGetLastError() after the launch (0 on success).
 int kmeans_assign_f32(const void* points, const void* centroids, int n,
-                      int k, int d, void* idx_out, void* min_out,
-                      void* stream) {
+                      int k, int d, int bn, int bk, void* idx_out,
+                      void* min_out, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (k <= 0 || d <= 0 || d > KM_MAX_D) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + KM_THREADS - 1) / KM_THREADS);
+  if (k <= 0 || d <= 0 || d > KM_MAX_D || bn <= 0 || bn > KM_MAX_THREADS
+      || bk <= 0 || (size_t)bk * (d + 1) * sizeof(float) > KM_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)bk * (d + 1) * sizeof(float);
+  const dim3 grid((n + bn - 1) / bn);
   const cudaStream_t s = (cudaStream_t)stream;
   const float* p = (const float*)points;
   const float* c = (const float*)centroids;
@@ -113,7 +127,7 @@ int kmeans_assign_f32(const void* points, const void* centroids, int n,
   float* mn = (float*)min_out;
   switch (d) {
 #define KM_CASE(D) \
-  case D: kmeans_assign_kernel<D><<<grid, KM_THREADS, 0, s>>>(p, c, n, k, idx, mn); break;
+  case D: kmeans_assign_kernel<D><<<grid, bn, smem, s>>>(p, c, n, k, bk, idx, mn); break;
     KM_CASE(1) KM_CASE(2) KM_CASE(3) KM_CASE(4) KM_CASE(5) KM_CASE(6)
     KM_CASE(7) KM_CASE(8) KM_CASE(9) KM_CASE(10) KM_CASE(11) KM_CASE(12)
     KM_CASE(13) KM_CASE(14) KM_CASE(15) KM_CASE(16) KM_CASE(17) KM_CASE(18)

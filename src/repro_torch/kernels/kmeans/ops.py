@@ -9,10 +9,11 @@ that its main path went through the kernel.
 from __future__ import annotations
 
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import autotune
 from . import kmeans as kernel
 from . import ref
 
@@ -20,11 +21,26 @@ LAUNCHES = 0
 _count_lock = threading.Lock()
 
 
-def assign(points: torch.Tensor, centroids: torch.Tensor
+def resolve_blocks(n: int, k: int, d: int, dtype: torch.dtype, device,
+                   bn: Optional[int], bk: Optional[int]) -> Tuple[int, int]:
+    """Block sizes for assignment: explicit args win, else the autotune
+    registry, else :data:`autotune.DEFAULTS`.  Every choice gives
+    bitwise the same result; only the time differs."""
+    if bn is None or bk is None:
+        tuned = autotune.lookup("kmeans", {"n": n, "k": k, "d": d}, dtype,
+                                device) or autotune.DEFAULTS["kmeans"]
+        bn = bn if bn is not None else tuned["bn"]
+        bk = bk if bk is not None else tuned["bk"]
+    return bn, bk
+
+
+def assign(points: torch.Tensor, centroids: torch.Tensor, *,
+           bn: Optional[int] = None, bk: Optional[int] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest-centroid assignment: points (n, d), centroids (k, d), f32
     or bf16 (upcast to f32) -> (idx (n,) int32, squared distance (n,) f32).
-    The first index wins a tie."""
+    The first index wins a tie.  bn points per block and bk centroids per
+    shared-memory tile (resolved by :func:`resolve_blocks`)."""
     if points.device.type == "cpu":
         return ref.assign(points, centroids)
     if points.device.type != "cuda":
@@ -47,12 +63,18 @@ def assign(points: torch.Tensor, centroids: torch.Tensor
         raise ValueError(f"assign: d={d} outside 1..{kernel.MAX_D}")
     if k < 1 or n >= 2**31 or k >= 2**31:
         raise ValueError(f"assign: n={n}, k={k} out of range")
+    bn, bk = resolve_blocks(n, k, d, points.dtype, points.device, bn, bk)
+    if not 1 <= bn <= kernel.MAX_THREADS or bk < 1 \
+            or kernel.smem_bytes(bk, d) > kernel.SMEM_MAX:
+        raise ValueError(f"assign: bn={bn}, bk={bk} outside the kernel's "
+                         f"limits (bn <= {kernel.MAX_THREADS}, "
+                         f"{kernel.SMEM_MAX} bytes of shared memory)")
     p = points.float()                     # upcast, as the reference does
     c = centroids.float()
     idx = torch.empty(n, dtype=torch.int32, device=p.device)
     partial_min = torch.empty(n, dtype=torch.float32, device=p.device)
     if n:
-        kernel.assign_cuda(p, c, idx, partial_min)
+        kernel.assign_cuda(p, c, idx, partial_min, bn=bn, bk=bk)
         global LAUNCHES
         with _count_lock:
             LAUNCHES += 1

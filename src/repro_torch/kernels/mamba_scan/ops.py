@@ -1,0 +1,82 @@
+"""Public wrapper for the Mamba selective-scan kernel (autotuned blocks).
+
+For a CUDA tensor :func:`scan` launches the hand-written kernel
+(:mod:`.mamba_scan`) or raises — it never falls back.  For a CPU tensor
+it runs the plain version (:mod:`.ref`), which is what the CPU tests
+reach.  ``LAUNCHES`` counts kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import autotune
+from . import mamba_scan as kernel
+from . import ref
+
+LAUNCHES = 0
+_count_lock = threading.Lock()
+
+
+def resolve_blocks(S: int, di: int, st: int, dtype: torch.dtype, device,
+                   bdi: Optional[int], bs: Optional[int]) -> Tuple[int, int]:
+    """Block sizes for the scan: explicit args win, else the autotune
+    registry, else :data:`autotune.DEFAULTS`.  Not snapped to divisors:
+    the kernel masks rows past d_inner and steps past S itself."""
+    if bdi is None or bs is None:
+        tuned = autotune.lookup("mamba_scan", {"S": S, "di": di, "st": st},
+                                dtype, device) \
+            or autotune.DEFAULTS["mamba_scan"]
+        bdi = bdi if bdi is not None else tuned["bdi"]
+        bs = bs if bs is not None else tuned["bs"]
+    return bdi, bs
+
+
+def scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
+         h0: torch.Tensor, *, bdi: Optional[int] = None,
+         bs: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan. a,b: (B,S,di,st); C: (B,S,st); h0: (B,di,st), f32
+    or bf16 (upcast) -> (y (B,S,di) f32, h_last (B,di,st) f32)."""
+    if a.device.type == "cpu":
+        return ref.scan(a, b, C, h0)
+    if a.device.type != "cuda":
+        raise ValueError(f"scan: unsupported device {a.device}")
+    if a.ndim != 4:
+        raise ValueError(f"scan: a has shape {tuple(a.shape)}, not "
+                         "(B, S, di, st)")
+    B, S, di, st = a.shape
+    want = {"b": (B, S, di, st), "C": (B, S, st), "h0": (B, di, st)}
+    for name, t in (("b", b), ("C", C), ("h0", h0)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"scan: {name} has shape {tuple(t.shape)}, "
+                             f"want {want[name]}")
+    for t in (a, b, C, h0):
+        if t.device != a.device:
+            raise ValueError(f"scan: inputs on {t.device} and {a.device}")
+        if t.dtype != a.dtype or t.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+            raise TypeError("scan: inputs must share one dtype, f32 or "
+                            f"bf16; got {t.dtype} and {a.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("scan: inputs must be contiguous")
+    if not 1 <= st <= kernel.MAX_ST:
+        raise ValueError(f"scan: st={st} outside 1..{kernel.MAX_ST}, the "
+                         "state widths the kernel is built for")
+    if min(B, S, di) < 1 or B > 65535 or max(S, di) >= 2**31:
+        raise ValueError(f"scan: shape {tuple(a.shape)} out of range")
+    bdi, bs = resolve_blocks(S, di, st, a.dtype, a.device, bdi, bs)
+    if bs not in kernel.BS_BUILT:
+        raise ValueError(f"scan: bs={bs} not in {kernel.BS_BUILT}")
+    if bdi < 1 or kernel.threads(bdi, st) > kernel.MAX_THREADS:
+        raise ValueError(f"scan: bdi={bdi} gives a block of "
+                         f"{kernel.threads(bdi, st)} threads, over "
+                         f"{kernel.MAX_THREADS}")
+    y = torch.empty((B, S, di), dtype=torch.float32, device=a.device)
+    h_last = torch.empty((B, di, st), dtype=torch.float32, device=a.device)
+    kernel.scan_cuda(a, b, C, h0, y, h_last, bdi=bdi, bs=bs)
+    global LAUNCHES
+    with _count_lock:
+        LAUNCHES += 1
+    return y, h_last

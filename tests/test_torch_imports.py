@@ -22,7 +22,13 @@ def _imported_roots(path: Path):
 
 def test_scan_covers_the_port():
     names = {p.name for p in FILES}
-    assert {"chip_smoke.py", "dataplane.py", "ops.py", "kmeans.py"} <= names
+    assert {"chip_smoke.py", "dataplane.py", "ops.py", "kmeans.py",
+            "autotune.py", "platform.py", "flash_attention.py",
+            "mamba_scan.py"} <= names
+    rel = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES
+           if "repro_torch" in p.parts}
+    assert {f"kernels/{k}/ops.py"
+            for k in ("kmeans", "flash_attention", "mamba_scan")} <= rel
 
 
 @pytest.mark.parametrize("path", FILES,
