@@ -22,8 +22,10 @@ Phases (any failure raises and the script exits non-zero):
      bf16, then timed beside its bound and its plain version;
   6. flash_attention against its plain version at Hymba-1.5B (windowed
      and full causal), Llama-3.2-1B, Yi-6B and SeamlessM4T-medium
-     encoder widths, a prime S, bf16 and the reference's test shapes,
-     then timed beside its bound, its plain version and
+     encoder widths, a prime S, bf16, S_q != S_k, a window narrower than
+     one tensor-core tile, hd 32 at a ragged S and the reference's test
+     shapes, then timed (f32 and bf16) beside its bound at the peak of
+     the units it runs on, its plain version and
      scaled_dot_product_attention;
   7. the autotuner entry point, ``autotune.main`` once per kernel family
      against a temporary registry: launches counted, a second call is a
@@ -39,6 +41,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -52,6 +55,11 @@ sys.path.insert(0, str(ROOT / "src"))
 # NVIDIA H100 SXM data sheet: FP32 (non-tensor) peak and HBM3 bandwidth
 FP32_FLOP_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# the same data sheet's dense tensor-core peaks: 495 TFLOP/s TF32, 989
+# bf16.  K2's f32 path runs every product as three TF32 products
+# (3xTF32), so its f32 peak is a third of the TF32 one.
+TF32X3_FLOP_PER_S = 495e12 / 3
+BF16_TC_FLOP_PER_S = 989e12
 
 ITERS = 2          # the paper's K-Means iterations
 REPS = 5           # main-path repetitions per scenario and path
@@ -71,22 +79,32 @@ SCAN_CASES = [
     ("hymba-1.5b", 1, 4096, 3200, 16, False, True),
     ("falcon-mamba-7b", 1, 2048, 8192, 16, False, True),
 ]
-# (label, B, S, H, hd, causal, window, bf16, timed): the attention widths
-# of the repo's configs (Hymba-1.5B's KV heads repeated to 25), a prime
-# S, bf16 and the reference's test shapes
+# (label, B, S_q, S_k, H, hd, causal, window, bf16, timed): the attention
+# widths of the repo's configs (Hymba-1.5B's KV heads repeated to 25), a
+# prime S, bf16, S_q != S_k, a 5-key window (narrower than one 8- or
+# 16-key mma tile), hd 32 at a ragged S and the reference's test shapes
 ATTN_CASES = [
-    ("hymba-1.5b windowed", 1, 4096, 25, 64, True, 2048, False, True),
-    ("hymba-1.5b full causal", 1, 4096, 25, 64, True, 0, False, True),
-    ("llama-3.2-1b", 1, 2048, 32, 64, True, 0, False, True),
-    ("yi-6b", 1, 2048, 32, 128, True, 0, False, True),
-    ("seamless-m4t-medium encoder", 1, 1024, 16, 64, False, 0, False, True),
-    ("prime S=1021", 1, 1021, 4, 64, True, 256, False, False),
-    ("bf16 llama-3.2-1b", 1, 2048, 32, 64, True, 0, True, False),
-    ("bf16 hymba windowed", 1, 4096, 25, 64, True, 2048, True, False),
-] + [(f"test {B}x{S}x{H}x{hd} c{int(c)} w{w}", B, S, H, hd, c, w, False,
-      False)
-     for B, S, H, hd in ((1, 128, 2, 32), (2, 256, 4, 64), (1, 512, 1, 128))
-     for c, w in ((True, 0), (True, 64), (False, 0))]
+    ("hymba-1.5b windowed", 1, 4096, 4096, 25, 64, True, 2048, False, True),
+    ("hymba-1.5b full causal", 1, 4096, 4096, 25, 64, True, 0, False, True),
+    ("llama-3.2-1b", 1, 2048, 2048, 32, 64, True, 0, False, True),
+    ("yi-6b", 1, 2048, 2048, 32, 128, True, 0, False, True),
+    ("seamless-m4t-medium encoder", 1, 1024, 1024, 16, 64, False, 0, False,
+     True),
+    ("prime S=1021", 1, 1021, 1021, 4, 64, True, 256, False, False),
+    ("bf16 llama-3.2-1b", 1, 2048, 2048, 32, 64, True, 0, True, True),
+    ("bf16 hymba windowed", 1, 4096, 4096, 25, 64, True, 2048, True, True),
+] + [(f"S_q 64 x S_k 128 hd{hd} c{int(c)}{' bf16' * bf}", 2, 64, 128, 3,
+      hd, c, 0, bf, False)
+     for hd in (64, 128) for c in (True, False) for bf in (False, True)] + [
+    (f"window 5 hd{hd} c{int(c)}{' bf16' * bf}", 1, 300, 300, 2, hd, c, 5,
+     bf, False)
+    for hd in (32, 64, 128) for c in (True, False) for bf in (False, True)
+] + [(f"hd32 ragged S=333{' bf16' * bf}", 2, 333, 333, 3, 32, True, 0, bf,
+      False) for bf in (False, True)] + [
+    (f"test {B}x{S}x{H}x{hd} c{int(c)} w{w}", B, S, S, H, hd, c, w, False,
+     False)
+    for B, S, H, hd in ((1, 128, 2, 32), (2, 256, 4, 64), (1, 512, 1, 128))
+    for c, w in ((True, 0), (True, 64), (False, 0))]
 # phase 7's shapes: Hymba-1.5B's windowed attention and its Mamba width,
 # the paper's 10k x 5000 K-Means
 TUNE_SHAPES = {
@@ -100,6 +118,21 @@ TUNE_SHAPES = {
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def ptxas_instances(log: str) -> list:
+    """(kernel, registers, bytes of spill stores) for each instance in
+    nvcc's ``-Xptxas -v`` report."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split()[-1])
+        elif "registers" in line and name:
+            out.append((name, int(line.split("Used ")[1].split()[0]), spill))
+            name = None
+    return out
 
 
 def card_line() -> str:
@@ -137,12 +170,18 @@ def assign_bound(n: int, k: int, d: int) -> dict:
             "t_ops": t_ops}
 
 
-def bound_of(nbytes: float, flops: float) -> dict:
-    """The least time on the card: bytes over the memory rate or FP32
-    operations over the FP32 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return {"bytes": nbytes, "flops": flops, "t_bytes": t_bytes,
-            "t_ops": t_ops, "bound_ms": 1e3 * max(t_bytes, t_ops),
+def bound_of(nbytes: float, flops: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> dict:
+    """The least time on the card: bytes over the memory rate or the
+    operations over the peak of the units that run them (FP32 unless
+    given), whichever is larger."""
+    return bound_from(nbytes / HBM_BYTES_PER_S, flops / flop_per_s,
+                      bytes=nbytes, flops=flops)
+
+
+def bound_from(t_bytes: float, t_ops: float, **counts) -> dict:
+    return {**counts, "t_bytes": t_bytes, "t_ops": t_ops,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -167,11 +206,15 @@ def live_pairs(S_q: int, S_k: int, causal: bool, window: int) -> int:
 
 def attention_bound(B, S_q, S_k, H, hd, causal, window, es) -> dict:
     """q, k, v read once and o written once; QK^T and PV cost 2 FMAs a
-    head dim for every live pair (FP32 FMAs, bf16 included: the kernel
-    upcasts)."""
+    head dim for every live pair, at the peak of the tensor cores' path
+    the kernel takes: 3xTF32 for f32, bf16 for bf16.  ``simt_bound_ms``
+    is the same work at the FP32 (non-tensor) peak, the bound of the
+    earlier one-thread-per-row kernel."""
     nbytes = es * B * H * hd * (2 * S_q + 2 * S_k)
     flops = 4 * hd * B * H * live_pairs(S_q, S_k, causal, window)
-    return bound_of(nbytes, flops)
+    peak = TF32X3_FLOP_PER_S if es == 4 else BF16_TC_FLOP_PER_S
+    return bound_of(nbytes, flops, peak) | {
+        "simt_bound_ms": bound_of(nbytes, flops)["bound_ms"]}
 
 
 def held(torch, got, want, tol: float, label: str) -> float:
@@ -315,10 +358,11 @@ def scan_inputs(torch, gen, dev, B, S, di, st, dtype):
             randn(torch, gen, dev, B, di, st, scale=0.1, dtype=dtype))
 
 
-def attn_inputs(torch, gen, dev, B, S, H, hd, dtype):
-    return (randn(torch, gen, dev, B, S, H, hd, scale=0.3, dtype=dtype),
-            randn(torch, gen, dev, B, S, H, hd, scale=0.3, dtype=dtype),
-            randn(torch, gen, dev, B, S, H, hd, dtype=dtype))
+def attn_inputs(torch, gen, dev, B, S_q, H, hd, dtype, S_k=None):
+    S_k = S_k or S_q
+    return (randn(torch, gen, dev, B, S_q, H, hd, scale=0.3, dtype=dtype),
+            randn(torch, gen, dev, B, S_k, H, hd, scale=0.3, dtype=dtype),
+            randn(torch, gen, dev, B, S_k, H, hd, dtype=dtype))
 
 
 def phase_scan(torch, dev):
@@ -362,15 +406,15 @@ def phase_scan(torch, dev):
 def phase_attention(torch, dev):
     """6. K2 against its plain version (2e-4 for f32, 5e-2 for bf16, the
     reference's tolerances), timed at the configs' widths beside
-    scaled_dot_product_attention."""
+    scaled_dot_product_attention in the same dtype."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     print("phase 6: flash_attention against its plain version")
     gen = torch.Generator(device=dev).manual_seed(6)
     max_err, rows = {"float32": 0.0, "bfloat16": 0.0}, []
-    for label, B, S, H, hd, causal, window, bf16, timed in ATTN_CASES:
+    for label, B, S, S_k, H, hd, causal, window, bf16, timed in ATTN_CASES:
         dtype = torch.bfloat16 if bf16 else torch.float32
-        q, k, v = attn_inputs(torch, gen, dev, B, S, H, hd, dtype)
+        q, k, v = attn_inputs(torch, gen, dev, B, S, H, hd, dtype, S_k)
         mask = {"causal": causal, "window": window}
         o = fa_ops.attention(q, k, v, **mask)
         r = fa_ref.attention(q, k, v, **mask)
@@ -391,18 +435,26 @@ def phase_attention(torch, dev):
             t_p = min(t_p, cuda_ms(torch,
                                    lambda: fa_ref.attention(q, k, v, **mask)))
             lib_err = (library().transpose(1, 2) - r).abs().max().item()
-            bound = attention_bound(B, S, S, H, hd, causal, window,
+            bound = attention_bound(B, S, S_k, H, hd, causal, window,
                                     q.element_size())
             rows.append({"shape": label, "B": B, "S": S, "H": H, "hd": hd,
                          **mask, "dtype": str(dtype), "ms": t_k,
                          "plain_ms": t_p, "library_ms": t_l,
-                         "library_max_abs_err": lib_err, **bound})
+                         "library_max_abs_err": lib_err,
+                         "share_of_bound": bound["bound_ms"] / t_k, **bound})
             line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa "
                      f"{t_l:.4f} ms (|err| {lib_err:.1e}), bound "
-                     f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                     f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+                     f"{100 * bound['bound_ms'] / t_k:.1f} % of it), FP32 "
+                     f"SIMT bound {bound['simt_bound_ms']:.4f} ms, "
                      f"{bound['flops'] / t_k / 1e9:.2f} TFLOP/s")
         print(line)
         del q, k, v, o, r
+    f32 = [r for r in rows if r["dtype"] == "torch.float32"]
+    print(f"  f32 widths summed: kernel {sum(r['ms'] for r in f32):.4f} ms, "
+          f"sdpa {sum(r['library_ms'] for r in f32):.4f} ms, plain "
+          f"{sum(r['plain_ms'] for r in f32):.4f} ms, bound "
+          f"{sum(r['bound_ms'] for r in f32):.4f} ms")
     return max_err, rows
 
 
@@ -496,9 +548,9 @@ def phase_autotune(torch, dev, compare_kmeans):
 def kernel_entry(name, source, replaces, launches, err, rows,
                  library: bool) -> dict:
     """One kernel's record: times summed over its timed shapes, bound
-    from their summed bytes and operations."""
-    bound = bound_of(sum(r["bytes"] for r in rows),
-                     sum(r["flops"] for r in rows))
+    from their summed bytes and their operations at each shape's peak."""
+    bound = bound_from(sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S,
+                       sum(r["t_ops"] for r in rows))
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": sum(r["ms"] for r in rows),
@@ -548,15 +600,17 @@ def run(torch) -> int:
     build_s = build.build_all(sources)
     print(f"kernel build: {build_s:.2f} s")
     for src in sources:
-        log = build.build_log(src).splitlines()
-        regs = [int(w.split()[0]) for line in log if "registers" in line
-                for w in [line.split("Used ")[1]]]
-        spills = sum(int(line.split("bytes spill stores")[0].split()[-1])
-                     for line in log if "spill stores" in line)
-        if regs:
-            print(f"  ptxas {src.name}: {len(regs)} kernels, "
-                  f"{min(regs)}-{max(regs)} registers, {spills} bytes of "
-                  "spill stores in all")
+        inst = ptxas_instances(build.build_log(src))
+        if inst:
+            regs = [r for _, r, _ in inst]
+            print(f"  ptxas {src.name}: {len(inst)} kernels, "
+                  f"{min(regs)}-{max(regs)} registers, "
+                  f"{sum(sp for *_, sp in inst)} bytes of spill stores in all")
+    for name, regs, spill in ptxas_instances(build.build_log(fa_k.SOURCE)):
+        hd, bk, elem = re.search(r"ILi(\d+)ELi(\d+)E(f|13__nv_bfloat16)",
+                                 name).groups()
+        print(f"    K2 hd {hd} bk {bk} {'f32' if elem == 'f' else 'bf16'}: "
+              f"{regs} registers, {spill} bytes of spill stores")
 
     # ------------------------------------- 2. kernel against plain version
     print("phase 2: kmeans_assign against its plain version")

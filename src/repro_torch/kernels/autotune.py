@@ -43,10 +43,11 @@ KERNELS = ("flash_attention", "kmeans", "mamba_scan")
 # the shipped block sizes — the fallback when the registry has no entry,
 # and the baseline every speedup is reported against
 DEFAULTS: Dict[str, Dict[str, int]] = {
-    # 128 query rows (threads) per block and 32-key tiles: a block takes
-    # 51 KB of shared memory at hd 64 (4 blocks fit on an SM) and 98 KB
-    # at hd 128; Hymba-1.5B at S = 4096 gives 800 blocks for 132 SMs
-    "flash_attention": {"bq": 128, "bk": 32},
+    # 128 query rows per block (8 warps of 16 rows on mma.sync) and
+    # 64-key tiles in a 2-stage ring: in f32 a block takes 102 KB of
+    # shared memory at hd 64 (2 blocks fit on an SM) and 198 KB at hd
+    # 128; Hymba-1.5B at S = 4096 gives 800 blocks for 132 SMs
+    "flash_attention": {"bq": 128, "bk": 64},
     # the constants the kernel was first built with: the K-Means main
     # path is unchanged while the registry has no entry
     "kmeans": {"bn": 256, "bk": 256},
@@ -71,8 +72,8 @@ KEY_DIMS: Dict[str, Tuple[str, ...]] = {
 }
 
 # candidate block sizes: the sizes each kernel is built for
-_FLASH_BQ = (32, 64, 128, 256)           # query rows = threads per block
-_FLASH_BK = (16, 32, 64, 128)            # keys per tile, multiples of 8
+_FLASH_BQ = (32, 64, 128)                # query rows, 16 per warp
+_FLASH_BK = fa_kernel.BK_BUILT           # keys per tile, instantiated
 _KMEANS_BN = (64, 128, 256, 512)         # points = threads per block
 _KMEANS_BK = (64, 128, 256, 512, 1024, 2048)   # centroids per tile
 _MAMBA_BDI = (1, 2, 4, 8, 16, 32)        # d_inner rows per block
@@ -223,7 +224,8 @@ def candidates_flash(S_q: int, S_k: int, hd: int,
                      budget: int = SMEM_OPTIN_MAX_BYTES
                      ) -> List[Dict[str, int]]:
     """(bq, bk) grid the kernel is built for, filtered by its shared
-    memory: the query tile, the K and V tiles (all f32)."""
+    memory in f32 (the larger element): the query tile and two stages of
+    K and V tiles."""
     return [{"bq": bq, "bk": bk}
             for bq in _FLASH_BQ for bk in _FLASH_BK
             if fa_kernel.smem_bytes(bq, bk, hd) <= budget]

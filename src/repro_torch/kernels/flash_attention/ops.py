@@ -1,9 +1,10 @@
 """Public wrapper for the flash-attention kernel (autotuned block sizes).
 
 For a CUDA tensor :func:`attention` launches the hand-written kernel
-(:mod:`.flash_attention`) or raises — it never falls back.  For a CPU
-tensor it runs the plain version (:mod:`.ref`), which is what the CPU
-tests reach.  ``LAUNCHES`` counts kernel launches and nothing else.
+(:mod:`.flash_attention`: ``mma.sync`` tensor cores, 3xTF32 in f32 and
+bf16 in bf16) or raises — it never falls back.  For a CPU tensor it runs
+the plain version (:mod:`.ref`), which is what the CPU tests reach.
+``LAUNCHES`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
 
@@ -23,12 +24,17 @@ _count_lock = threading.Lock()
 def resolve_blocks(S_q: int, S_k: int, hd: int, dtype: torch.dtype, device,
                    bq: Optional[int], bk: Optional[int]) -> Tuple[int, int]:
     """Block sizes for attention: explicit args win, else the autotune
-    registry, else :data:`autotune.DEFAULTS`.  Not snapped to divisors:
-    the kernel masks the ragged edge of S itself."""
+    registry, else :data:`autotune.DEFAULTS`.  A registry entry the
+    kernel is not built for (say, one tuned for an older kernel) counts
+    as a miss.  Not snapped to divisors: the kernel masks the ragged edge
+    of S itself."""
     if bq is None or bk is None:
         tuned = autotune.lookup(
             "flash_attention", {"S_q": S_q, "S_k": S_k, "hd": hd}, dtype,
-            device) or autotune.DEFAULTS["flash_attention"]
+            device)
+        if tuned is None or not kernel.accepts(
+                tuned.get("bq", 0), tuned.get("bk", 0), hd, dtype.itemsize):
+            tuned = autotune.DEFAULTS["flash_attention"]
         bq = bq if bq is not None else tuned["bq"]
         bk = bk if bk is not None else tuned["bk"]
     return bq, bk
@@ -58,8 +64,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                                  torch.bfloat16):
             raise TypeError("attention: inputs must share one dtype, f32 "
                             f"or bf16; got {t.dtype} and {q.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("attention: inputs must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("attention: inputs must be contiguous and "
+                             "16-byte aligned")
     B, S_q, H, hd = q.shape
     S_k = k.shape[1]
     if hd not in kernel.HEAD_DIMS:
@@ -71,11 +78,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"attention: shape {tuple(q.shape)} / "
                          f"{tuple(k.shape)} or window {window} out of range")
     bq, bk = resolve_blocks(S_q, S_k, hd, q.dtype, q.device, bq, bk)
-    if not 1 <= bq <= kernel.MAX_THREADS or bk < 1 \
-            or kernel.smem_bytes(bq, bk, hd) > kernel.SMEM_MAX:
+    if not kernel.accepts(bq, bk, hd, q.element_size()):
         raise ValueError(f"attention: bq={bq}, bk={bk} outside the "
-                         f"kernel's limits (bq <= {kernel.MAX_THREADS}, "
-                         f"{kernel.SMEM_MAX} bytes of shared memory)")
+                         f"kernel's limits (bq a multiple of "
+                         f"{kernel.WARP_ROWS} up to {kernel.MAX_BQ}, bk in "
+                         f"{kernel.BK_BUILT}, {kernel.SMEM_MAX} bytes of "
+                         "shared memory)")
     out = torch.empty_like(q)
     kernel.attention_cuda(q, k, v, out, causal=causal, window=int(window),
                           bq=bq, bk=bk)

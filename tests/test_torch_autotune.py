@@ -184,14 +184,19 @@ def test_main_cli_on_the_cpu(tmp_path, capsys):
 # ----------------------------------------------------------- candidates
 def test_candidates_respect_smem_budget():
     for hd in (32, 64, 128):
-        for c in at.candidates_flash(4096, 4096, hd):
-            bkp = -(-c["bk"] // 8) * 8
-            smem = 4 * (c["bq"] * (hd + 4) + 2 * bkp * hd)
+        cands = at.candidates_flash(4096, 4096, hd)
+        assert cands and at.DEFAULTS["flash_attention"] in cands
+        for c in cands:
+            # the query tile + 2 stages of K and V, f32 rows padded 16 B
+            smem = (c["bq"] + 4 * c["bk"]) * (4 * hd + 16)
             assert smem <= at.SMEM_OPTIN_MAX_BYTES <= 232_448
-            assert c["bq"] <= fa_ker.MAX_THREADS
-    small = at.candidates_flash(4096, 4096, 128, budget=48 * 1024)
-    assert small and all(fa_ker.smem_bytes(c["bq"], c["bk"], 128)
+            assert c["bq"] % 16 == 0 and c["bq"] <= fa_ker.MAX_BQ
+            assert c["bk"] in fa_ker.BK_BUILT
+            assert fa_ker.accepts(c["bq"], c["bk"], hd)
+    small = at.candidates_flash(4096, 4096, 64, budget=48 * 1024)
+    assert small and all(fa_ker.smem_bytes(c["bq"], c["bk"], 64)
                          <= 48 * 1024 for c in small)
+    assert not at.candidates_flash(4096, 4096, 128, budget=48 * 1024)
     for d in (3, 16, 32):
         for c in at.candidates_kmeans(100_000, 5_000, d):
             assert 4 * c["bk"] * (d + 1) <= at.SMEM_DEFAULT_BYTES
@@ -212,18 +217,38 @@ def test_candidates_mamba_fit_the_block():
 # --------------------------------------------------- ops wrapper consult
 def test_ops_wrappers_consult_registry(registry_env):
     _put(registry_env, "flash_attention", {"S_q": 256, "S_k": 256, "hd": 64},
-         {"bq": 64, "bk": 16})
+         {"bq": 64, "bk": 32})
     _put(registry_env, "mamba_scan", {"S": 256, "di": 512, "st": 16},
          {"bdi": 4, "bs": 16})
     _put(registry_env, "kmeans", {"n": 1000, "k": 50, "d": 3},
          {"bn": 128, "bk": 64})
     f32 = torch.float32
-    assert fa.resolve_blocks(256, 256, 64, f32, CUDA, None, None) == (64, 16)
-    assert fa.resolve_blocks(256, 256, 64, f32, CUDA, 32, None) == (32, 16)
+    assert fa.resolve_blocks(256, 256, 64, f32, CUDA, None, None) == (64, 32)
+    assert fa.resolve_blocks(256, 256, 64, f32, CUDA, 32, None) == (32, 32)
     assert ms.resolve_blocks(256, 512, 16, f32, CUDA, None, None) == (4, 16)
     assert ms.resolve_blocks(256, 512, 16, f32, CUDA, None, 4) == (4, 4)
     assert km.resolve_blocks(1000, 50, 3, f32, CUDA, None, None) == (128, 64)
     assert km.resolve_blocks(1000, 50, 3, f32, CUDA, 512, None) == (512, 64)
+
+
+@pytest.mark.parametrize("config", [{"bq": 256, "bk": 32},
+                                    {"bq": 128, "bk": 16},
+                                    {"bq": 40, "bk": 64}, {"bq": 128}],
+                         ids=["bq256", "bk16", "bq40", "no-bk"])
+def test_flash_registry_entry_the_kernel_cannot_take_is_a_miss(
+        registry_env, config):
+    """An entry tuned for an older kernel (a 256-thread bq, a 16-key
+    tile) resolves to DEFAULTS instead of raising at launch; explicit
+    arguments still win."""
+    _put(registry_env, "flash_attention", {"S_q": 4096, "S_k": 4096,
+                                           "hd": 64}, config)
+    f32, d = torch.float32, at.DEFAULTS["flash_attention"]
+    assert at.lookup("flash_attention", {"S_q": 4096, "S_k": 4096,
+                                         "hd": 64}, f32, CUDA) == config
+    assert fa.resolve_blocks(4096, 4096, 64, f32, CUDA, None, None) == \
+        (d["bq"], d["bk"])
+    assert fa.resolve_blocks(4096, 4096, 64, f32, CUDA, 32, None) == \
+        (32, d["bk"])
 
 
 def test_ops_wrappers_default_without_registry(registry_env):
