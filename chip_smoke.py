@@ -9,9 +9,12 @@ Phases (any failure raises and the script exits non-zero):
   1. card and set-up: the card's name and power limit, torch and CUDA
      versions, and the build of every kernel from ``csrc/`` with nvcc
      (one nvcc per source, all started together);
-  2. kmeans_assign against its plain PyTorch version at the K-Means
-     path's shapes (plus ragged, bf16, wide and tie cases), then timed
-     beside its bound, its plain version and one library call;
+  2. K1 (kmeans_assign's scan and, where k is split across blocks, its
+     merge) against the plain PyTorch version at the K-Means path's
+     shapes (plus ragged, bf16, wide, tie and tie-across-split-boundary
+     cases), bitwise equal across split counts, the merge alone against
+     its plain version, then timed beside the bound, the plain version
+     and one library call;
   3. the K-Means path: ResourceManager -> PilotManager -> Pilot ->
      spawn_analytics_cluster -> AnalyticsEngine -> kmeans_fit on the
      paper's three K-Means scenarios at full size, both data paths,
@@ -264,17 +267,86 @@ def compare_assign(torch, ops, ref, p, c, label: str) -> float:
     return err.max().item()
 
 
-def first_iteration_flips(torch, km_kernel, ref, pts, centroids,
-                          blocks: dict) -> int:
+def bare_launcher(torch, km_kernel, p, c, bn: int, bk: int, splits: int):
+    """K1 through its launcher, without the wrapper's checks, allocations
+    or launch counts: the scan, and the merge when k is split.  Returns a
+    callable that launches and gives (idx, distance); its ``partials``
+    are the scan's (splits, n) indices and minima when k is split."""
+    n = p.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=p.device)
+    dist = torch.empty(n, dtype=torch.float32, device=p.device)
+    part = km_kernel.partials(splits, n, p.device)
+
+    def run():
+        km_kernel.assign_cuda(p, c, idx, dist, bn=bn, bk=bk, part=part)
+        return idx, dist
+    run.partials = () if part is None else (part[0],
+                                            part[1].view(torch.float32))
+    return run
+
+
+def chosen_splits(ops, km_kernel, n: int, k: int, d: int, blocks: dict,
+                  sms: int) -> int:
+    return ops.split_count(n, k, blocks["bn"], blocks["bk"],
+                           km_kernel.rows(d), sms)
+
+
+def graph_ms(torch, fn, reps: int = TIMED_LAUNCHES, rounds: int = 5
+             ) -> float:
+    """Device time per call of `fn` without the host's cost: `reps` calls
+    captured in one CUDA graph, its replay timed with CUDA events (best
+    of `rounds`)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = math.inf
+    for _ in range(rounds):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def host_us(torch, fn, reps: int = TIMED_LAUNCHES) -> float:
+    """Host time per call of `fn` back to back, without waiting for the
+    card: the wrapper's own cost (checks, lookups, allocations, launch)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
+def first_iteration_flips(torch, km_kernel, ops, ref, pts, centroids,
+                          blocks: dict, sms: int) -> int:
     """Points the kernel and the plain version assign differently from
     the same centroids.  Each must be a tie by distance: the two
     choices' float64 squared distances agree within the comparison's
-    tolerance (atol 1e-3, rtol 1e-4).  Uses the bare launcher, so these
-    comparison launches stay out of the wrapper's launch count."""
-    n = pts.shape[0]
-    idx = torch.empty(n, dtype=torch.int32, device=pts.device)
-    part = torch.empty(n, dtype=torch.float32, device=pts.device)
-    km_kernel.assign_cuda(pts, centroids, idx, part, **blocks)
+    tolerance (atol 1e-3, rtol 1e-4).  Uses the bare launchers (the
+    split count the wrapper would choose), so these comparison launches
+    stay out of the wrapper's launch counts."""
+    n, d = pts.shape
+    splits = chosen_splits(ops, km_kernel, n, centroids.shape[0], d, blocks,
+                           sms)
+    idx, _ = bare_launcher(torch, km_kernel, pts, centroids, blocks["bn"],
+                           blocks["bk"], splits)()
     plain_idx, _ = ref.assign(pts, centroids)
     diff = (idx != plain_idx).nonzero()[:, 0]
     p64 = pts[diff].double()
@@ -311,7 +383,9 @@ def profile_fit(torch, km, eng, name: str, k: int) -> dict:
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     host_ops = [e for e in events if e.device_type == DeviceType.CPU]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    k1_ms = sum(dev_us(e) for e in kernels if "kmeans_" in e.key) / 1e3
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "k1_device_ms": k1_ms,
            "top_device_ms": {e.key[:72]: dev_us(e) / 1e3 for e in
                              sorted(kernels, key=dev_us, reverse=True)[:6]},
            "top_cpu_ms": {e.key[:72]: e.self_cpu_time_total / 1e3 for e in
@@ -320,7 +394,7 @@ def profile_fit(torch, km, eng, name: str, k: int) -> dict:
     share = (f"{100 * busy_ms / wall_ms:.1f} %" if busy_ms
              else "not measured (no device events)")
     print(f"  {name}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({share})")
+          f"({share}), K1 (scan + merge) {k1_ms:.4f} ms")
     for key, ms in out["top_device_ms"].items():
         print(f"    device {ms:9.4f} ms  {key}")
     for key, ms in out["top_cpu_ms"].items():
@@ -545,6 +619,156 @@ def phase_autotune(torch, dev, compare_kmeans):
     return launches, recs
 
 
+def bitwise_across_splits(torch, ops, km_kernel, p, c, blocks: dict,
+                          sms: int, label: str) -> list:
+    """K1 gives bitwise the same idx and distance with one split, the
+    split count the wrapper chooses and the most it takes."""
+    n, d = p.shape
+    k = c.shape[0]
+    counts = sorted({1, chosen_splits(ops, km_kernel, n, k, d, blocks, sms),
+                     ops.max_splits(k, blocks["bk"])})
+    base = [t.clone() for t in bare_launcher(
+        torch, km_kernel, p, c, blocks["bn"], blocks["bk"], counts[0])()]
+    for s in counts[1:]:
+        got = bare_launcher(torch, km_kernel, p, c, blocks["bn"],
+                            blocks["bk"], s)()
+        check(torch.equal(got[0], base[0]) and torch.equal(got[1], base[1]),
+              f"{label}: {s} splits not bitwise equal to {counts[0]}")
+    return counts
+
+
+def phase_assign(torch, dev, km, km_kernel, ops, ref, blocks: dict,
+                 sms: int):
+    """2. K1 (scan and merge) against its plain version at the paper's
+    shapes and the ragged, bf16, wide and tie cases; bitwise equal across
+    split counts; timed beside its bound, its plain version and
+    cdist + min."""
+    print(f"phase 2: kmeans_assign against its plain version (blocks "
+          f"{blocks}, {sms} SMs)")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_err, merge_err = 0.0, 0.0
+    shapes, merge_rows = [], []
+    for name, (n, k) in km.PAPER_SCENARIOS.items():
+        d = km.PAPER_DIM
+        p = km.make_dataset(n, seed=1, device=dev)
+        c = p[torch.randperm(n, generator=gen, device=dev)[:k]].contiguous()
+        max_err = max(max_err, compare_assign(torch, ops, ref, p, c, name))
+        counts = bitwise_across_splits(torch, ops, km_kernel, p, c, blocks,
+                                       sms, name)
+        splits = chosen_splits(ops, km_kernel, n, k, d, blocks, sms)
+        grid = -(-n // (blocks["bn"] * km_kernel.rows(d))) * splits
+        bound = assign_bound(n, k, d)
+        bare = bare_launcher(torch, km_kernel, p, c, blocks["bn"],
+                             blocks["bk"], splits)
+        # kernel, plain, library, kernel, plain: in turns on one card
+        t_kernel = cuda_ms(torch, lambda: ops.assign(p, c))
+        t_plain = cuda_ms(torch, lambda: ref.assign(p, c))
+        t_lib = cuda_ms(torch, lambda: torch.cdist(p, c).min(dim=1))
+        t_kernel = min(t_kernel, cuda_ms(torch, lambda: ops.assign(p, c)))
+        t_plain = min(t_plain, cuda_ms(torch, lambda: ref.assign(p, c)))
+        # the bare launches (no checks, no allocations) back to back, and
+        # their device time alone, replayed from a CUDA graph
+        t_bare = cuda_ms(torch, bare)
+        t_dev = graph_ms(torch, bare)
+        t_host = host_us(torch, lambda: ops.assign(p, c))
+        row = {"shape": name, "n": n, "k": k, "d": d, "splits": splits,
+               "split_counts_bitwise": counts, "blocks": grid,
+               "sms_filled": min(grid, sms), "ms": t_kernel,
+               "kernel_only_ms": t_bare, "device_ms": t_dev,
+               "wrapper_host_us": t_host, "plain_ms": t_plain,
+               "library_ms": t_lib,
+               **bound_from(bound["t_bytes"], bound["t_ops"],
+                            bytes=bound["bytes"], flops=bound["flops"])}
+        row["share_of_bound"] = row["bound_ms"] / t_dev
+        shapes.append(row)
+        print(f"  {name}: {splits} splits x "
+              f"{grid // splits} point blocks = {grid} blocks on {sms} "
+              f"SMs; wrapper {t_kernel:.4f} ms (host {t_host:.1f} us a "
+              f"call), bare launch {t_bare:.4f} ms, device {t_dev:.4f} ms; "
+              f"plain {t_plain:.4f} ms, cdist+min {t_lib:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}; "
+              f"{100 * row['share_of_bound']:.1f} % of it on the device); "
+              f"bitwise equal over splits {counts}")
+        if splits > 1:
+            # the merge kernel alone against its plain version, on the
+            # scan's own partials
+            idx, dist = bare()
+            part_idx, part_min = bare.partials
+            want_idx, want_dist = ref.merge(p, part_idx, part_min)
+            torch.cuda.synchronize()
+            check(torch.equal(idx, want_idx), f"{name}: merge indices")
+            err = held(torch, dist, want_dist, 1e-5, f"{name} merge")
+            merge_err = max(merge_err, err)
+            i_out = torch.empty_like(idx)
+            d_out = torch.empty_like(dist)
+
+            def merge():
+                km_kernel.merge_cuda(p, part_idx, part_min, i_out, d_out)
+            t_m = graph_ms(torch, merge)
+            t_mp = cuda_ms(torch, lambda: ref.merge(p, part_idx, part_min))
+            # partials and points read once, results written once; a
+            # compare per partial and d FMAs (2 FLOPs each) per point
+            mb = bound_of(4 * (2 * splits * n + n * d) + 8 * n,
+                          n * (splits + 2 * d))
+            merge_rows.append({"shape": name, "n": n, "splits": splits,
+                               "ms": t_m, "plain_ms": t_mp,
+                               "library_ms": None, **mb})
+            print(f"    merge ({splits} partials a point): device "
+                  f"{t_m:.4f} ms, plain {t_mp:.4f} ms, bound "
+                  f"{mb['bound_ms']:.4f} ms ({mb['bound_by']}), max |err| "
+                  f"{err:.1e}")
+    ragged_p = torch.randn(10_007, 3, generator=gen, device=dev)
+    ragged_c = torch.randn(517, 3, generator=gen, device=dev)
+    max_err = max(max_err, compare_assign(torch, ops, ref, ragged_p,
+                                          ragged_c, "ragged"))
+    bitwise_across_splits(torch, ops, km_kernel, ragged_p, ragged_c, blocks,
+                          sms, "ragged")
+    bf_p = torch.randn(4_099, 3, generator=gen, device=dev).bfloat16()
+    bf_c = torch.randn(300, 3, generator=gen, device=dev).bfloat16()
+    max_err = max(max_err, compare_assign(torch, ops, ref, bf_p, bf_c,
+                                          "bf16"))
+    for w in (16, 32):
+        wide_p = torch.randn(2_000, w, generator=gen, device=dev)
+        wide_c = torch.randn(100, w, generator=gen, device=dev)
+        max_err = max(max_err, compare_assign(torch, ops, ref, wide_p,
+                                              wide_c, f"wide d={w}"))
+        bitwise_across_splits(torch, ops, km_kernel, wide_p, wide_c, blocks,
+                              sms, f"wide d={w}")
+    base = torch.randn(40, 3, generator=gen, device=dev)
+    tie_c = torch.cat([base, base, base]).contiguous()  # every centroid x3
+    tie_p = torch.randn(5_000, 3, generator=gen, device=dev)
+    max_err = max(max_err, compare_assign(torch, ops, ref, tie_p, tie_c,
+                                          "tie"))
+    tie_idx, _ = ops.assign(tie_p, tie_c)
+    check(bool((tie_idx < base.shape[0]).all()),
+          "tie: a duplicate centroid did not resolve to its first index")
+    # duplicates straddling every split boundary at 10k x 5000: the
+    # centroid after each boundary repeats the one before it, and points
+    # sit next to them
+    n, k = km.PAPER_SCENARIOS["10k_points_5k_clusters"]
+    splits = chosen_splits(ops, km_kernel, n, k, 3, blocks, sms)
+    check(splits > 1, "10k x 5000 is not split: no boundary to test")
+    lows = torch.tensor([lo for lo, _ in ops.split_ranges(k, splits)[1:]],
+                        device=dev)
+    sc = torch.randn(k, 3, generator=gen, device=dev)
+    sc[lows] = sc[lows - 1]
+    sp = torch.randn(n, 3, generator=gen, device=dev)
+    near = sc[lows - 1].repeat(4, 1)
+    sp[:near.shape[0]] = near + 1e-3 * torch.randn(
+        near.shape, generator=gen, device=dev)
+    max_err = max(max_err, compare_assign(torch, ops, ref, sp, sc,
+                                          "tie across split boundaries"))
+    counts = bitwise_across_splits(torch, ops, km_kernel, sp, sc, blocks,
+                                   sms, "tie across split boundaries")
+    s_idx, _ = ops.assign(sp, sc)
+    check(not bool(torch.isin(s_idx, lows.to(torch.int32)).any()),
+          "a duplicate across a split boundary took the later index")
+    print(f"  tie across split boundaries: {len(lows)} boundaries, "
+          f"{near.shape[0]} points beside them resolve to the lower "
+          f"index; bitwise equal over splits {counts}")
+    return max_err, shapes, merge_err, merge_rows
+
+
 def kernel_entry(name, source, replaces, launches, err, rows,
                  library: bool) -> dict:
     """One kernel's record: times summed over its timed shapes, bound
@@ -612,58 +836,19 @@ def run(torch) -> int:
         print(f"    K2 hd {hd} bk {bk} {'f32' if elem == 'f' else 'bf16'}: "
               f"{regs} registers, {spill} bytes of spill stores")
 
+    k1_ptxas = {}
+    for name, regs, spill in ptxas_instances(
+            build.build_log(km_kernel.SOURCE)):
+        m = re.search(r"kmeans_assign_kernelILi(\d+)ELi(\d+)E", name)
+        k1_ptxas[f"scan D {m[1]} R {m[2]}" if m else "merge"] = [regs, spill]
+    items = [f"{key}: {r}/{sp}" for key, (r, sp) in k1_ptxas.items()]
+    for i in range(0, len(items), 6):
+        print("    K1 (registers/spill bytes) " + "; ".join(items[i:i + 6]))
+
     # ------------------------------------- 2. kernel against plain version
-    print("phase 2: kmeans_assign against its plain version")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = 0.0
-    shapes = []
-    for name, (n, k) in km.PAPER_SCENARIOS.items():
-        p = km.make_dataset(n, seed=1, device=dev)
-        c = p[torch.randperm(n, generator=gen, device=dev)[:k]].contiguous()
-        max_err = max(max_err, compare_assign(torch, ops, ref, p, c, name))
-        bound = assign_bound(n, k, km.PAPER_DIM)
-        # kernel, plain, library, kernel, plain: in turns on one card
-        t_kernel = cuda_ms(torch, lambda: ops.assign(p, c))
-        t_plain = cuda_ms(torch, lambda: ref.assign(p, c))
-        t_lib = cuda_ms(torch, lambda: torch.cdist(p, c).min(dim=1))
-        t_kernel = min(t_kernel, cuda_ms(torch, lambda: ops.assign(p, c)))
-        t_plain = min(t_plain, cuda_ms(torch, lambda: ref.assign(p, c)))
-        # the bare launch, without the wrapper's checks and |p|^2 epilogue
-        idx_out = torch.empty(n, dtype=torch.int32, device=dev)
-        min_out = torch.empty(n, dtype=torch.float32, device=dev)
-        t_bare = cuda_ms(torch, lambda: km_kernel.assign_cuda(
-            p, c, idx_out, min_out, **km_blocks))
-        shapes.append({"shape": name, "n": n, "k": k, "d": km.PAPER_DIM,
-                       "ms": t_kernel, "kernel_only_ms": t_bare,
-                       "plain_ms": t_plain, "library_ms": t_lib,
-                       "bound_ms": 1e3 * max(bound["t_bytes"], bound["t_ops"]),
-                       "bound_by": ("bytes" if bound["t_bytes"]
-                                    >= bound["t_ops"] else "operations"),
-                       "bytes": bound["bytes"], "flops": bound["flops"]})
-        print(f"  {name}: kernel {t_kernel:.4f} ms (bare launch "
-              f"{t_bare:.4f} ms), plain {t_plain:.4f} ms, "
-              f"cdist+min {t_lib:.4f} ms, bound {shapes[-1]['bound_ms']:.4f}"
-              f" ms ({shapes[-1]['bound_by']})")
-    ragged_p = torch.randn(10_007, 3, generator=gen, device=dev)
-    ragged_c = torch.randn(517, 3, generator=gen, device=dev)
-    max_err = max(max_err, compare_assign(torch, ops, ref, ragged_p,
-                                          ragged_c, "ragged"))
-    bf_p = torch.randn(4_099, 3, generator=gen, device=dev).bfloat16()
-    bf_c = torch.randn(300, 3, generator=gen, device=dev).bfloat16()
-    max_err = max(max_err, compare_assign(torch, ops, ref, bf_p, bf_c,
-                                          "bf16"))
-    wide_p = torch.randn(2_000, 16, generator=gen, device=dev)
-    wide_c = torch.randn(100, 16, generator=gen, device=dev)
-    max_err = max(max_err, compare_assign(torch, ops, ref, wide_p, wide_c,
-                                          "wide"))
-    base = torch.randn(40, 3, generator=gen, device=dev)
-    tie_c = torch.cat([base, base, base]).contiguous()  # every centroid x3
-    tie_p = torch.randn(5_000, 3, generator=gen, device=dev)
-    max_err = max(max_err, compare_assign(torch, ops, ref, tie_p, tie_c,
-                                          "tie"))
-    tie_idx, _ = ops.assign(tie_p, tie_c)
-    check(bool((tie_idx < base.shape[0]).all()),
-          "tie: a duplicate centroid did not resolve to its first index")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    max_err, shapes, merge_err, merge_rows = phase_assign(
+        torch, dev, km, km_kernel, ops, ref, km_blocks, sms)
 
     # --------------------------------------------------------- 3. main path
     print("phase 3: main path (Pilot -> Mode-I cluster -> kmeans_fit)")
@@ -686,8 +871,8 @@ def run(torch) -> int:
         for s, (name, (n, k)) in enumerate(km.PAPER_SCENARIOS.items()):
             eng.put(name, km.make_dataset(n, seed=10 + s, device=home))
             flips = first_iteration_flips(
-                torch, km_kernel, ref, eng.get(name).full(),
-                km._init_centroids(eng.get(name), k, 0), km_blocks)
+                torch, km_kernel, ops, ref, eng.get(name).full(),
+                km._init_centroids(eng.get(name), k, 0), km_blocks, sms)
             one = [km.kmeans_fit(eng, name, k, iters=1, use_kernel=uk)[1]
                    for uk in (True, False)]
             check(math.isclose(one[0], one[1], rel_tol=1e-4),
@@ -711,7 +896,7 @@ def run(torch) -> int:
               f"{np_cost:.6e}")
 
         walls = {}
-        ops.LAUNCHES = 0                       # the main path's window
+        ops.LAUNCHES = ops.MERGE_LAUNCHES = 0  # the main path's window
         for name, (n, k) in km.PAPER_SCENARIOS.items():
             n_blocks = len(eng.get(name).row_blocks())
             costs = {}
@@ -771,7 +956,7 @@ def run(torch) -> int:
         check(ops.LAUNCHES - before == ITERS,
               f"gang CU: {ops.LAUNCHES - before} launches, want {ITERS}")
         print(f"  gang CU {cu.uid}: cost {gang_cost:.6e}")
-        launches = ops.LAUNCHES
+        launches, merge_launches = ops.LAUNCHES, ops.MERGE_LAUNCHES
 
         # ------------------------------------- 4. where the time goes
         print("phase 4: profile of one local kmeans_fit per scenario")
@@ -782,6 +967,9 @@ def run(torch) -> int:
         pm.shutdown()
 
     check(launches > 0, "the main path launched no kmeans_assign kernel")
+    check(merge_launches > 0, "the main path launched no kmeans_merge kernel")
+    print(f"  main path: {launches} scan launches, {merge_launches} merge "
+          "launches")
 
     scan_err, scan_rows = phase_scan(torch, dev)
     attn_err, attn_rows = phase_attention(torch, dev)
@@ -801,9 +989,15 @@ def run(torch) -> int:
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": sum(s["library_ms"] for s in shapes),
+        "kernel_only_ms": sum(s["kernel_only_ms"] for s in shapes),
+        "device_ms": sum(s["device_ms"] for s in shapes),
         "launches_autotune": tuned_launches["kmeans"],
-        "shapes": shapes,
+        "ptxas": k1_ptxas, "shapes": shapes,
     }, kernel_entry(
+        "kmeans_merge",
+        "src/repro_torch/kernels/kmeans/csrc/kmeans_assign.cu",
+        "src/repro/kernels/kmeans/kmeans.py:47", merge_launches, merge_err,
+        merge_rows, library=False), kernel_entry(
         "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:82",

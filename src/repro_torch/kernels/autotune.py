@@ -48,9 +48,12 @@ DEFAULTS: Dict[str, Dict[str, int]] = {
     # shared memory at hd 64 (2 blocks fit on an SM) and 198 KB at hd
     # 128; Hymba-1.5B at S = 4096 gives 800 blocks for 132 SMs
     "flash_attention": {"bq": 128, "bk": 64},
-    # the constants the kernel was first built with: the K-Means main
-    # path is unchanged while the registry has no entry
-    "kmeans": {"bn": 256, "bk": 256},
+    # 128 threads of 4 points (512 points a block at d <= 8) and tiles
+    # of 256 packed centroids (4 KB at d = 3); ops.split_count splits k
+    # at the paper's 10k x 5000 (20 splits) and 100k x 500 (2) to fill
+    # the card.  Fastest summed over the paper's three shapes of the
+    # grid tools/kmeans_blocks.py times on an H100.
+    "kmeans": {"bn": 128, "bk": 256},
     # 8 d_inner rows of 16 state lanes = 128 threads; 400 blocks at
     # Hymba-1.5B width (di 3200), so all are resident at once; 8 steps
     # of loads (96 bytes a lane) in flight ahead of the recurrence
@@ -74,8 +77,8 @@ KEY_DIMS: Dict[str, Tuple[str, ...]] = {
 # candidate block sizes: the sizes each kernel is built for
 _FLASH_BQ = (32, 64, 128)                # query rows, 16 per warp
 _FLASH_BK = fa_kernel.BK_BUILT           # keys per tile, instantiated
-_KMEANS_BN = (64, 128, 256, 512)         # points = threads per block
-_KMEANS_BK = (64, 128, 256, 512, 1024, 2048)   # centroids per tile
+_KMEANS_BN = (32, 64, 128, 256, 512)     # threads per block, whole warps
+_KMEANS_BK = (32, 64, 128, 256, 512, 1024)     # centroids per tile
 _MAMBA_BDI = (1, 2, 4, 8, 16, 32)        # d_inner rows per block
 
 
@@ -234,15 +237,19 @@ def candidates_flash(S_q: int, S_k: int, hd: int,
 def candidates_kmeans(n: int, k: int, d: int,
                       budget: int = SMEM_DEFAULT_BYTES
                       ) -> List[Dict[str, int]]:
-    """(bn, bk) grid for the assignment kernel, capped at the bucketed
-    n and k (larger blocks do the same work), filtered by its shared
-    memory: a tile of bk centroids and their norms."""
+    """(bn, bk) grid for the assignment scan, capped at the bucketed
+    threads n needs (``rows(d)`` points a thread) and the bucketed k
+    (larger blocks do the same work), filtered by what the scan takes
+    and by its shared memory: a tile of bk packed centroids."""
     out, seen = [], set()
+    threads = -(-n // km_kernel.rows(d))
     for bn_w in _KMEANS_BN:
         for bk_w in _KMEANS_BK:
-            bn = min(bn_w, _bucket(max(n, 32)))
+            bn = min(bn_w, _bucket(max(threads, 32)))
             bk = min(bk_w, _bucket(max(k, 8)))
-            if km_kernel.smem_bytes(bk, d) > budget or (bn, bk) in seen:
+            if not km_kernel.accepts(bn, bk, d) \
+                    or km_kernel.smem_bytes(bk, d) > budget \
+                    or (bn, bk) in seen:
                 continue
             seen.add((bn, bk))
             out.append({"bn": bn, "bk": bk})

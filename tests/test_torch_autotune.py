@@ -199,8 +199,12 @@ def test_candidates_respect_smem_budget():
     assert not at.candidates_flash(4096, 4096, 128, budget=48 * 1024)
     for d in (3, 16, 32):
         for c in at.candidates_kmeans(100_000, 5_000, d):
-            assert 4 * c["bk"] * (d + 1) <= at.SMEM_DEFAULT_BYTES
+            # bk packed centroids of ceil((d + 1) / 4) float4s each
+            assert 16 * c["bk"] * ((d + 4) // 4) <= at.SMEM_DEFAULT_BYTES
             assert c["bn"] <= km_ker.MAX_THREADS
+            assert km_ker.accepts(c["bn"], c["bk"], d)
+        assert at.DEFAULTS["kmeans"] in at.candidates_kmeans(100_000,
+                                                             5_000, d)
     assert max(c["bk"] for c in at.candidates_kmeans(10, 5_000, 32)) < \
         max(c["bk"] for c in at.candidates_kmeans(10, 5_000, 3))
 
@@ -251,6 +255,27 @@ def test_flash_registry_entry_the_kernel_cannot_take_is_a_miss(
         (32, d["bk"])
 
 
+@pytest.mark.parametrize("config", [{"bn": 1024, "bk": 64},
+                                    {"bn": 100, "bk": 64},
+                                    {"bn": 128, "bk": 30},
+                                    {"bn": 128, "bk": 4096}, {"bn": 128}],
+                         ids=["bn1024", "bn100", "bk30", "bk4096", "no-bk"])
+def test_kmeans_registry_entry_the_kernel_cannot_take_is_a_miss(
+        registry_env, config):
+    """An entry the scan does not take (more than 512 threads, a part
+    warp, bk off the 4-centroid groups, a tile over 48 KB) resolves to
+    DEFAULTS instead of raising at launch; explicit arguments still win."""
+    shape = {"n": 10_000, "k": 5_000, "d": 3}
+    _put(registry_env, "kmeans", shape, config)
+    f32, d = torch.float32, at.DEFAULTS["kmeans"]
+    assert at.lookup("kmeans", shape, f32, CUDA) == config
+    assert not km_ker.accepts(config["bn"], config.get("bk", 0), 3)
+    assert km.resolve_blocks(10_000, 5_000, 3, f32, CUDA, None, None) == \
+        (d["bn"], d["bk"])
+    assert km.resolve_blocks(10_000, 5_000, 3, f32, CUDA, 64, None) == \
+        (64, d["bk"])
+
+
 def test_ops_wrappers_default_without_registry(registry_env):
     f32 = torch.float32
     d = at.DEFAULTS
@@ -259,7 +284,7 @@ def test_ops_wrappers_default_without_registry(registry_env):
     assert ms.resolve_blocks(256, 512, 16, f32, CUDA, None, None) == \
         (d["mamba_scan"]["bdi"], d["mamba_scan"]["bs"])
     assert km.resolve_blocks(10_000, 5_000, 3, f32, CUDA, None, None) == \
-        (256, 256)                      # the K-Means main path's blocks
+        (d["kmeans"]["bn"], d["kmeans"]["bk"])  # the K-Means main path's
 
 
 def test_resolve_blocks_does_not_snap(registry_env):
@@ -302,7 +327,7 @@ def test_port_ignores_reference_interpret_entries(tmp_path, monkeypatch):
             assert at.lookup("kmeans", shape, torch.float32, dev) is None
             assert km.resolve_blocks(1000, 50, 3, torch.float32,
                                      torch.device(dev), None, None) == \
-                (256, 256)
+                tuple(at.DEFAULTS["kmeans"].values())
     finally:
         monkeypatch.delenv("REPRO_AUTOTUNE_REGISTRY")
         at.default_registry(reload=True)

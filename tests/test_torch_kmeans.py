@@ -23,6 +23,8 @@ from repro_torch import convert
 from repro_torch.analytics import kmeans as tkm
 from repro_torch.analytics.engine import AnalyticsEngine as TEngine
 from repro_torch.core.dataplane import DataPlane as TDataPlane, DeviceGrid
+from repro_torch.kernels import autotune
+from repro_torch.kernels.kmeans import kmeans as kernel
 from repro_torch.kernels.kmeans import ops as tops
 from repro_torch.kernels.kmeans import ref as tref
 
@@ -73,6 +75,129 @@ def test_duplicate_centroids_resolve_to_first_index():
     ri, _ = jref.assign(jnp.asarray(p), jnp.asarray(c))
     assert (ti.numpy() < len(base)).all()
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+
+
+# ------------------------------------------- around the Hopper kernels
+# The scan and merge kernels run only on the card; what surrounds them
+# (block and split choice, the split ranges, the packed layout, the merge
+# rule) is plain Python and PyTorch, held here against the reference.
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("n,k,d", [(10_000, 5_000, 3), (100_000, 500, 3),
+                                   (1_000_000, 50, 3), (7, 3, 3),
+                                   (2_000, 100, 16), (0, 9, 32)])
+def test_split_count_fills_the_card_within_the_tiles(n, k, d):
+    bn, bk = (autotune.DEFAULTS["kmeans"][x] for x in ("bn", "bk"))
+    r = kernel.rows(d)
+    splits = tops.split_count(n, k, bn, bk, r, H100_SMS)
+    assert 1 <= splits <= -(-k // bk)
+    blocks = -(-n // (bn * r))
+    if (n, k) == (10_000, 5_000):       # 10 point blocks alone: ~8 % of 132
+        assert blocks * splits >= H100_SMS
+    if blocks >= tops.BLOCKS_PER_SM * H100_SMS:
+        assert splits == 1
+    # every candidate block size gets a count the scan takes
+    for cfg in autotune.candidates_kmeans(max(n, 1), k, d):
+        s = tops.split_count(n, k, cfg["bn"], cfg["bk"], r, H100_SMS)
+        assert 1 <= s <= tops.max_splits(k, cfg["bk"])
+
+
+@pytest.mark.parametrize("k", [1, 4, 5, 29, 50, 5_000])
+def test_split_ranges_cover_k_in_group_steps(k):
+    for splits in range(1, -(-k // kernel.GROUP) + 1):
+        ranges = tops.split_ranges(k, splits)
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
+            assert hi == lo2 and lo % kernel.GROUP == 0
+        assert all(lo < hi for lo, hi in ranges)       # none is empty
+
+
+def _tie_inputs(k, seed):
+    """Small integer coordinates: every distance is exact in f32, so ties
+    are real and do not depend on summation order.  For each split count
+    of the test, the centroid after every split boundary duplicates the
+    one before it."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-3, 4, size=(k, 3)).astype(np.float32)
+    for splits in (2, 3, 7):
+        for lo, _ in tops.split_ranges(k, splits)[1:]:
+            c[lo] = c[lo - 1]
+    p = rng.integers(-4, 5, size=(600, 3)).astype(np.float32)
+    p[:k] = c                                # points exactly on centroids
+    return torch.from_numpy(p), torch.from_numpy(c)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_split_merge_rule_keeps_the_first_index(splits):
+    """ref.assign per contiguous centroid range, merged in split order
+    with a strict `<`, gives ref.assign's result bitwise, and a duplicate
+    across a split boundary resolves to the lower index."""
+    p, c = _tie_inputs(29, seed=splits)
+    ranges = tops.split_ranges(c.shape[0], splits)
+    parts = [tref.assign(p, c[lo:hi]) for lo, hi in ranges]
+    idx, dist = tref.merge_partials(
+        torch.stack([i + lo for (i, _), (lo, _) in zip(parts, ranges)]),
+        torch.stack([m for _, m in parts]))
+    want_idx, want_dist = tref.assign(p, c)
+    assert torch.equal(idx, want_idx) and torch.equal(dist, want_dist)
+    ri, _ = jref.assign(jnp.asarray(p.numpy()), jnp.asarray(c.numpy()))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    for lo, _ in ranges[1:]:
+        assert torch.equal(c[lo], c[lo - 1])
+        assert not (idx == lo).any()
+
+
+@pytest.mark.parametrize("n,k,d", [(300, 37, 1), (500, 50, 3), (256, 9, 4),
+                                   (200, 21, 16), (100, 8, 32)])
+def test_packed_layout_scores_match_the_reference(n, k, d):
+    jp, jc, tp, tc = _inputs(n, k, d, jnp.float32, seed=7 * n + d)
+    packed = tref.pack(tc)
+    assert packed.shape == (k, 4 * ((d + 4) // 4))
+    assert torch.equal(packed[:, :d], -2.0 * tc)        # exact scaling
+    assert not packed[:, d + 1:].any()                  # zero padding
+    dist = tref.packed_scores(tp, packed) + tref.sq_norm(tp)[:, None]
+    mn, idx = dist.min(dim=1)
+    for oi, od in (tref.assign(tp, tc), jref.assign(jp, jc)):
+        np.testing.assert_allclose(mn.numpy(), np.asarray(od), rtol=1e-4,
+                                   atol=1e-3)
+        assert np.mean(idx.numpy() == np.asarray(oi)) > 0.99
+
+
+def _group_argmin(scores):
+    """The scan's argmin rule over one centroid range: the min of each
+    group of GROUP scores (the tail padded with +inf), the first group
+    reaching the least (a strict `<` across groups), then the first
+    centroid of that group whose score equals it."""
+    n, m = scores.shape
+    g = kernel.GROUP
+    padded = torch.full((n, -(-m // g) * g), float("inf"))
+    padded[:, :m] = scores
+    grouped = padded.view(n, -1, g)
+    best, group = grouped.amin(dim=2).min(dim=1)
+    rows = grouped[torch.arange(n), group]
+    first = (rows == best[:, None]).int().argmax(dim=1)
+    return best, (g * group + first).to(torch.int32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_plain_split_path_matches_reference(splits):
+    """The kernels' path in plain PyTorch: packed scores per split range,
+    the scan's group argmin, partial minima without |p|^2, then the merge
+    kernel's plain version adds it; held against the JAX reference on
+    tie-heavy inputs."""
+    p, c = _tie_inputs(29, seed=10 + splits)
+    packed = tref.pack(c)
+    part_min, part_idx = [], []
+    for lo, hi in tops.split_ranges(c.shape[0], splits):
+        mn, i = _group_argmin(tref.packed_scores(p, packed[lo:hi]))
+        part_min.append(mn)
+        part_idx.append(i + lo)
+    idx, dist = tref.merge(p, torch.stack(part_idx), torch.stack(part_min))
+    ri, rd = jref.assign(jnp.asarray(p.numpy()), jnp.asarray(c.numpy()))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(dist.numpy(), np.asarray(rd), rtol=1e-4,
+                               atol=1e-3)
 
 
 def test_wrapper_refuses_devices_it_has_no_kernel_for():
