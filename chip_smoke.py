@@ -34,7 +34,22 @@ Phases (any failure raises and the script exits non-zero):
      against a temporary registry: launches counted, a second call is a
      cache hit, the wrappers resolve the tuned blocks, a call at them
      matches the plain version, and K1 is bitwise equal across every
-     candidate block size.
+     candidate block size;
+  8. the Session (the paper's Fig 8): pilots ``hpc`` and ``ana`` on one
+     card, ``simulate`` -> ``analyze`` (kmeans_fit with K1) at each
+     K-Means scenario and DCN cost: native on ``ana`` moving n*d*4 bytes
+     at cost 0, a Mode-I carve on ``hpc`` moving none at cost 1, at most
+     one change along the sweep, K1 in every analyze, and the cost of a
+     direct kmeans_fit (rel 1e-5);
+  9. Raptor micro-tasks: K1 on 16 row shards of the 1M x 50 points
+     through ``Session.map``, bitwise equal to one call over all points,
+     then the dispatch time of no-op micro-tasks and no-op CUs;
+ 10. failure recovery (a pilot killed by the FailureInjector, its data
+     re-made through lineage on a survivor) and checkpoint/resume on a
+     fresh resource manager, each giving phase 8's cost.
+
+Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
+it and reads them after.
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -116,6 +131,15 @@ TUNE_SHAPES = {
     "mamba_scan": {"B": 1, "S": 4096, "di": 3200, "st": 16},
     "kmeans": {"n": 10_000, "k": 5_000, "d": 3},
 }
+# phase 8's DCN costs per byte (benchmarks/bench_session_placement.py)
+SESSION_DCN_COSTS = (0.0, 1e-9, 1e-7, 1e-5, 1e-3, 1.0)
+SESSION_SEED = 80      # simulate's seed is this plus the scenario's index
+RAPTOR_SHARDS = 16     # phase 9: row shards of the 1M x 50 points
+RAPTOR_SLOTS = 4       # lease slots of phase 9's pilot (2 overlay workers)
+MICRO_TASKS = 10_000   # no-op micro-tasks timed (and a tenth of them)
+# no-op CUs timed: the per-CU path scans its queue each round, so its
+# cost per task grows with the backlog; two sizes show the growth
+CU_TASKS = (1_000, 2_000)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -619,6 +643,286 @@ def phase_autotune(torch, dev, compare_kmeans):
     return launches, recs
 
 
+def fig8_stages(km, n: int, k: int, seed: int, runs: dict | None = None,
+                pin: str | None = None):
+    """The paper's Fig-8 DAG: ``simulate`` draws n points on its pilot's
+    card from a generator seeded with `seed` (so a re-run draws the same
+    points) and ``analyze`` runs K-Means with K1.  `runs` counts the
+    simulate runs and the K1 launches of each analyze."""
+    from repro_torch.core import analytics_stage, hpc_stage
+    from repro_torch.kernels.kmeans import ops
+    runs = {} if runs is None else runs
+
+    def simulate(mesh=None):
+        runs["simulate"] = runs.get("simulate", 0) + 1
+        return {"pts": km.make_dataset(n, km.PAPER_DIM, seed=seed,
+                                       device=mesh.devices.flat[0])}
+
+    def analyze(engine=None, pts=None):
+        before = ops.LAUNCHES
+        _, cost = km.kmeans_fit(engine, "pts", k, iters=ITERS,
+                                use_kernel=True)
+        runs.setdefault("k1", []).append(ops.LAUNCHES - before)
+        return {"cost": cost}
+
+    return [hpc_stage("simulate", simulate, outputs=("pts",), pilot=pin),
+            analytics_stage("analyze", analyze, inputs=("pts",))]
+
+
+def direct_fit(torch, km, dev, n: int, k: int, seed: int) -> float:
+    """kmeans_fit with K1 on the same points, outside any Session."""
+    from repro_torch.analytics.engine import AnalyticsEngine
+    from repro_torch.core import DataPlane, DeviceGrid
+    eng = AnalyticsEngine(DeviceGrid([dev]), DataPlane())
+    eng.put("pts", km.make_dataset(n, km.PAPER_DIM, seed=seed, device=dev))
+    cost = km.kmeans_fit(eng, "pts", k, iters=ITERS, use_kernel=True)[1]
+    torch.cuda.synchronize()
+    return cost
+
+
+def phase_session(torch, dev, km, direct: dict):
+    """8. The paper's Fig 8 through the Session: two pilots aliased over
+    one card, the analyze stage placed by the DCN cost, at each K-Means
+    scenario and each cost of benchmarks/bench_session_placement.py."""
+    from repro_torch.core import (Link, PilotDescription, ResourceManager,
+                                  Session, TransferCostModel)
+    print("phase 8: Session (Fig 8): simulate -> analyze over pilots hpc "
+          "and ana on one card")
+    rows = []
+    for s, (name, (n, k)) in enumerate(km.PAPER_SCENARIOS.items()):
+        modes = []
+        for dcn in SESSION_DCN_COSTS:
+            session = Session(ResourceManager(devices=[dev] * 2),
+                              cost_model=TransferCostModel(
+                                  dcn_cost_per_byte=dcn))
+            try:
+                session.add_pilot(PilotDescription(n_chips=1, name="hpc",
+                                                   runtime="hpc"))
+                session.add_pilot(PilotDescription(n_chips=1, name="ana",
+                                                   runtime="analytics"))
+                runs = {}
+                t0 = time.perf_counter()
+                out = session.run(fig8_stages(km, n, k, SESSION_SEED + s,
+                                              runs), timeout=600)
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+                place = session.placements["analyze"]
+                dcn_b = session.dataplane.moved_by_link(Link.DCN)
+                row = {"scenario": name, "dcn_cost_per_byte": dcn,
+                       "placed_on": place["pilot"], "mode": place["mode"],
+                       "dcn_bytes": dcn_b,
+                       "ici_bytes": session.dataplane.moved_by_link(Link.ICI),
+                       "score_hpc": place["scores"]["hpc"]["total"],
+                       "score_ana": place["scores"]["ana"]["total"],
+                       "cost": out["analyze"]["cost"],
+                       "direct_cost": direct[name], "wall_ms": wall_ms,
+                       "mode1_spawn_s": place.get("mode1_spawn_s"),
+                       "k1_launches": runs["k1"][0]}
+            finally:
+                session.shutdown()
+            check(row["k1_launches"] >= ITERS,
+                  f"{name} at {dcn}: analyze launched K1 "
+                  f"{row['k1_launches']} times")
+            check(math.isclose(row["cost"], direct[name], rel_tol=1e-5),
+                  f"{name} at {dcn}: session cost {row['cost']} vs direct "
+                  f"kmeans_fit {direct[name]}")
+            if dcn == SESSION_DCN_COSTS[0]:
+                check((row["placed_on"], row["mode"], dcn_b)
+                      == ("ana", "native", n * km.PAPER_DIM * 4),
+                      f"{name} at DCN cost 0: {row}")
+            if dcn == SESSION_DCN_COSTS[-1]:
+                check((row["placed_on"], row["mode"], dcn_b)
+                      == ("hpc", "mode1-carve", 0),
+                      f"{name} at DCN cost 1: {row}")
+            modes.append((row["placed_on"], row["mode"]))
+            rows.append(row)
+            spawn = row["mode1_spawn_s"]
+            print(f"  {name} dcn {dcn:.0e}/B: {row['placed_on']} "
+                  f"{row['mode']}, DCN {dcn_b} B, ICI {row['ici_bytes']} B, "
+                  f"scores hpc {row['score_hpc']:.6g} ana "
+                  f"{row['score_ana']:.6g}, wall {wall_ms:.3f} ms, "
+                  f"mode1_spawn_s {spawn if spawn is None else f'{spawn:.6f}'}"
+                  f", cost {row['cost']:.6e} (direct {direct[name]:.6e}), "
+                  f"K1 {row['k1_launches']} launches")
+        changes = sum(a != b for a, b in zip(modes, modes[1:]))
+        check(changes <= 1, f"{name}: the decision changed {changes} times "
+              "along the sweep")
+    return rows
+
+
+def noop(_=None) -> None:
+    return None
+
+
+def phase_raptor(torch, dev, km, ops) -> dict:
+    """9. Raptor micro-tasks through Session.map: K1 on 16 row shards of
+    the 1M x 50 points, bitwise equal to one call over all of them; then
+    the dispatch time of no-op micro-tasks and of no-op CUs."""
+    from repro_torch.core import (ComputeUnitDescription, PilotDescription,
+                                  ResourceManager, Session)
+    print("phase 9: Raptor micro-tasks through Session.map")
+    n, k = km.PAPER_SCENARIOS["1m_points_50_clusters"]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    pts = km.make_dataset(n, seed=9, device=dev)
+    cent = pts[torch.randperm(n, generator=gen, device=dev)[:k]].contiguous()
+    want_idx, want_min = ops.assign(pts, cent)
+    shards = torch.tensor_split(pts, RAPTOR_SHARDS)
+    session = Session(ResourceManager(devices=[dev] * RAPTOR_SLOTS))
+    try:
+        pilot = session.add_pilot(PilotDescription(
+            n_chips=RAPTOR_SLOTS, name="hpc", enable_speculation=False))
+
+        def assign_shard(shard):       # a closure: runs by reference
+            return ops.assign(shard, cent)
+
+        ops.LAUNCHES = ops.MERGE_LAUNCHES = 0
+        parts = session.map(assign_shard, shards, timeout=600)
+        torch.cuda.synchronize()
+        launches = (ops.LAUNCHES, ops.MERGE_LAUNCHES)
+        check(launches[0] == RAPTOR_SHARDS,
+              f"Session.map launched K1 {launches[0]} times, want "
+              f"{RAPTOR_SHARDS}")
+        got_idx = torch.cat([p[0] for p in parts])
+        got_min = torch.cat([p[1] for p in parts])
+        check(torch.equal(got_idx, want_idx) and torch.equal(got_min,
+                                                             want_min),
+              "sharded K1 through Session.map is not bitwise equal to one "
+              "call over all points")
+        workers = next(iter(session._overlays.values())).n_workers
+        print(f"  {RAPTOR_SHARDS} shards of {n // RAPTOR_SHARDS} points, "
+              f"k={k}, {workers} overlay workers: indices and minima "
+              f"bitwise equal to one call; {launches[0]} K1 launches")
+        dispatch = {}
+        for count in (MICRO_TASKS // 10, MICRO_TASKS):
+            t0 = time.perf_counter()
+            session.map(noop, range(count), timeout=600)
+            dispatch[f"micro_us_{count}"] = (
+                1e6 * (time.perf_counter() - t0) / count)
+        for count in CU_TASKS:
+            t0 = time.perf_counter()
+            cus = [pilot.submit(ComputeUnitDescription(
+                fn=noop, n_chips=1, needs_mesh=False, tag="noop"))
+                for _ in range(count)]
+            for cu in cus:
+                cu.wait(600)
+            dispatch[f"cu_us_{count}"] = (
+                1e6 * (time.perf_counter() - t0) / count)
+    finally:
+        session.shutdown()
+    small = MICRO_TASKS // 10
+    print(f"  no-op dispatch: micro-task {dispatch[f'micro_us_{small}']:.3f} "
+          f"us at {small}, {dispatch[f'micro_us_{MICRO_TASKS}']:.3f} us at "
+          f"{MICRO_TASKS}; CU "
+          + ", ".join(f"{dispatch[f'cu_us_{c}']:.3f} us at {c}"
+                      for c in CU_TASKS)
+          + f"; per task, CU / micro-task at {small}: "
+          f"{dispatch[f'cu_us_{small}'] / dispatch[f'micro_us_{small}']:.1f}x")
+    return {"launches": launches[0], "merge_launches": launches[1],
+            "shards": RAPTOR_SHARDS, "workers": workers, **dispatch}
+
+
+def phase_recovery(torch, dev, km, ops, want_cost: float) -> dict:
+    """10. (a) lineage recovery: simulate pinned to HPC pilot b, b killed
+    and recovered, pts re-made on HPC pilot a, analyze's cost unchanged;
+    (b) checkpoint, shutdown, Session.resume on a fresh ResourceManager:
+    simulate is not re-run and the cost is the same."""
+    from repro_torch.core import (FailureInjector, PilotDescription,
+                                  ResourceManager, Session)
+    print("phase 10: failure recovery and checkpoint/resume at 1M x 50")
+    n, k = km.PAPER_SCENARIOS["1m_points_50_clusters"]
+    seed = SESSION_SEED + list(km.PAPER_SCENARIOS).index(
+        "1m_points_50_clusters")
+    out = {}
+    ops.LAUNCHES = ops.MERGE_LAUNCHES = 0
+    # (a) three lease slots: HPC pilots a and b, analytics pilot ana
+    session = Session(ResourceManager(devices=[dev] * 3))
+    try:
+        a = session.add_pilot(PilotDescription(n_chips=1, name="a"))
+        b = session.add_pilot(PilotDescription(n_chips=1, name="b"))
+        session.add_pilot(PilotDescription(n_chips=1, name="ana",
+                                           runtime="analytics"))
+        session.enable_fault_tolerance(heartbeat_timeout_s=1.0)
+        runs = {}
+        simulate, analyze = fig8_stages(km, n, k, seed, runs, pin="b")
+        session.run([simulate], timeout=600)
+        check(session.dataplane.home_pilots("pts") == {b.uid},
+              "pts is not homed on b")
+        inj = FailureInjector(list(session.pilots.values()), seed=0)
+        check(inj.kill_pilot(b) is not None, "the injector refused to kill b")
+        ev = session.control_plane.recover_pilot(b, reason="chip-smoke")
+        check(not session.control_plane.errors,
+              f"recovery errors: {session.control_plane.errors}")
+        check(ev.lost_datasets == ["pts"] and ev.rematerialized == 1,
+              f"recovery lost {ev.lost_datasets}, re-made "
+              f"{ev.rematerialized}")
+        check(session.dataplane.home_pilots("pts") == {a.uid}
+              and session.placements["simulate"]["pilot"] == "a",
+              "pts was not re-made on a")
+        res = session.run([analyze], timeout=600)
+        torch.cuda.synchronize()
+        mttr = inj.mttr_samples(session.control_plane)
+        check(runs["simulate"] == 2, f"simulate ran {runs['simulate']} times")
+        check(len(mttr) == 1, f"{len(mttr)} MTTR samples")
+        out["recovered_cost"] = res["analyze"]["cost"]
+        out["mttr_s"] = mttr[0]
+        out["recovery_s"] = ev.recovery_s
+        out["analyze_placed_on"] = session.placements["analyze"]["pilot"]
+        out["k1_after_recovery"] = runs["k1"][0]
+    finally:
+        session.shutdown()
+    check(math.isclose(out["recovered_cost"], want_cost, rel_tol=1e-5),
+          f"cost after recovery {out['recovered_cost']} vs {want_cost}")
+    check(out["k1_after_recovery"] >= ITERS, "analyze did not launch K1")
+    print(f"  (a) b killed and recovered: pts re-made on a through lineage, "
+          f"simulate ran 2 times; MTTR {out['mttr_s']:.6f} s (recovery "
+          f"{out['recovery_s']:.6f} s); analyze on "
+          f"{out['analyze_placed_on']}: cost {out['recovered_cost']:.6e} "
+          f"(phase 8 {want_cost:.6e})")
+    # (b) checkpoint after simulate, resume on a fresh pool
+    pilots = (PilotDescription(n_chips=1, name="hpc"),
+              PilotDescription(n_chips=1, name="ana", runtime="analytics"))
+    runs = {}
+    stages = fig8_stages(km, n, k, seed, runs)
+    with tempfile.TemporaryDirectory() as ck:
+        first = Session(ResourceManager(devices=[dev] * 2))
+        try:
+            for desc in pilots:
+                first.add_pilot(desc)
+            first.run(stages[:1], timeout=600)
+            t0 = time.perf_counter()
+            first.checkpoint(ck)
+            out["checkpoint_s"] = time.perf_counter() - t0
+        finally:
+            first.shutdown()
+        t0 = time.perf_counter()
+        second = Session.resume(ck, ResourceManager(devices=[dev] * 2))
+        try:
+            for desc in pilots:
+                second.add_pilot(desc)
+            res = second.run(stages, timeout=600)
+            torch.cuda.synchronize()
+            out["resume_s"] = time.perf_counter() - t0
+            out["resumed_cost"] = res["analyze"]["cost"]
+            out["resume_bytes"] = second.dataplane.ledger()["by_reason"][
+                "session-resume"]
+        finally:
+            second.shutdown()
+    check(runs["simulate"] == 1, f"simulate ran {runs['simulate']} times "
+          "across checkpoint and resume")
+    check(out["resume_bytes"] == n * km.PAPER_DIM * 4,
+          f"resume restored {out['resume_bytes']} bytes")
+    check(math.isclose(out["resumed_cost"], out["recovered_cost"],
+                       rel_tol=1e-5),
+          f"resumed cost {out['resumed_cost']} vs {out['recovered_cost']}")
+    out["launches"], out["merge_launches"] = ops.LAUNCHES, ops.MERGE_LAUNCHES
+    print(f"  (b) checkpoint {out['checkpoint_s']:.6f} s; resume (fresh "
+          f"pool, restore {out['resume_bytes']} B, analyze) "
+          f"{out['resume_s']:.6f} s; simulate ran once; cost "
+          f"{out['resumed_cost']:.6e}; {out['launches']} K1 launches in "
+          "phase 10")
+    return out
+
+
 def bitwise_across_splits(torch, ops, km_kernel, p, c, blocks: dict,
                           sms: int, label: str) -> list:
     """K1 gives bitwise the same idx and distance with one split, the
@@ -971,6 +1275,22 @@ def run(torch) -> int:
     print(f"  main path: {launches} scan launches, {merge_launches} merge "
           "launches")
 
+    # ---------------------- 8-10. Session, Raptor, recovery and resume
+    t_phases = time.perf_counter()
+    direct = {name: direct_fit(torch, km, dev, n, k, SESSION_SEED + s)
+              for s, (name, (n, k)) in enumerate(km.PAPER_SCENARIOS.items())}
+    ops.LAUNCHES = ops.MERGE_LAUNCHES = 0      # phase 8's window
+    session_rows = phase_session(torch, dev, km, direct)
+    session_launches = (ops.LAUNCHES, ops.MERGE_LAUNCHES)
+    check(session_launches[0] > 0 and session_launches[1] > 0,
+          f"phase 8 launched K1 {session_launches} (scan, merge) times")
+    raptor = phase_raptor(torch, dev, km, ops)
+    recovery = phase_recovery(torch, dev, km, ops,
+                              direct["1m_points_50_clusters"])
+    check(recovery["launches"] > 0, "phase 10 launched no K1")
+    phases_s = time.perf_counter() - t_phases
+    print(f"  phases 8-10: {phases_s:.3f} s wall")
+
     scan_err, scan_rows = phase_scan(torch, dev)
     attn_err, attn_rows = phase_attention(torch, dev)
     tuned_launches, tuned = phase_autotune(
@@ -992,12 +1312,18 @@ def run(torch) -> int:
         "kernel_only_ms": sum(s["kernel_only_ms"] for s in shapes),
         "device_ms": sum(s["device_ms"] for s in shapes),
         "launches_autotune": tuned_launches["kmeans"],
+        "launches_session": session_launches[0],
+        "launches_raptor": raptor["launches"],
+        "launches_recovery": recovery["launches"],
         "ptxas": k1_ptxas, "shapes": shapes,
     }, kernel_entry(
         "kmeans_merge",
         "src/repro_torch/kernels/kmeans/csrc/kmeans_assign.cu",
         "src/repro/kernels/kmeans/kmeans.py:47", merge_launches, merge_err,
-        merge_rows, library=False), kernel_entry(
+        merge_rows, library=False) | {
+        "launches_session": session_launches[1],
+        "launches_raptor": raptor["merge_launches"],
+        "launches_recovery": recovery["merge_launches"]}, kernel_entry(
         "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:82",
@@ -1013,7 +1339,8 @@ def run(torch) -> int:
             "config", "default_config", "best_s", "default_s",
             "speedup_vs_default", "n_candidates", "wall_s")}
             for fam, rec in tuned.items()},
-        "profile": breakdown, "build_s": build_s}
+        "profile": breakdown, "session": session_rows, "raptor": raptor,
+        "recovery": recovery, "phases_8_10_s": phases_s, "build_s": build_s}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

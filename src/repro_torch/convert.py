@@ -14,13 +14,14 @@ from typing import Any, Dict, Iterable, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.analytics.engine import AnalyticsEngine
 from repro_torch.core.dataplane import DataPlane, Placement, place
 
 
 def to_tensor(arr: np.ndarray) -> torch.Tensor:
     """A CPU tensor with `arr`'s values and dtype (bfloat16 included)."""
-    arr = np.ascontiguousarray(arr)
+    arr = np.asarray(arr)
+    if not arr.flags.c_contiguous:     # (ascontiguousarray makes 0-d 1-d)
+        arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:        # e.g. np.asarray of a jax.Array
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":
@@ -38,6 +39,9 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _split(target: Any) -> tuple:
+    # imported here: the core's Session imports this module, and the
+    # engine imports the core
+    from repro_torch.analytics.engine import AnalyticsEngine
     if isinstance(target, AnalyticsEngine):
         return target.data, target.block_sharding()
     if isinstance(target, DataPlane):

@@ -125,6 +125,21 @@ class Pilot:
         return self.prefetcher.request_many(refs, priority=priority,
                                             reason=reason)
 
+    # ------------------------------------------------------------- overlay
+    def spawn_raptor(self, n_workers: int, *,
+                     tenant: Optional[str] = None,
+                     queue: Optional[str] = None, **kw):
+        """Start a Raptor micro-task overlay on this pilot: one
+        long-running gang CU holding ``n_workers`` chips, whose
+        persistent workers execute function-call-sized tasks with no
+        per-task scheduler admission (see :mod:`repro_torch.core.raptor`).
+        Blocks until the master CU is bound and its workers are live;
+        stop with ``master.shutdown()``."""
+        from .raptor import RaptorMaster
+        assert self.agent is not None, "pilot not started"
+        return RaptorMaster(self, n_workers, tenant=tenant, queue=queue,
+                            **kw).start()
+
     # ------------------------------------------------------------ Mode I
     def spawn_analytics_cluster(self, n_chips: int, *,
                                 tenant: Optional[str] = None,

@@ -29,6 +29,8 @@ def test_scan_covers_the_port():
            if "repro_torch" in p.parts}
     assert {f"kernels/{k}/ops.py"
             for k in ("kmeans", "flash_attention", "mamba_scan")} <= rel
+    assert {"core/session.py", "core/raptor.py", "core/chaos.py",
+            "roofline/placement.py", "roofline/terms.py"} <= rel
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -36,3 +38,20 @@ def test_scan_covers_the_port():
 def test_no_jax_or_reference_imports(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", ["repro_torch.analytics",
+                                    "repro_torch.convert",
+                                    "repro_torch.core.session",
+                                    "repro_torch.roofline"])
+def test_each_entry_module_imports_first(module):
+    """No import cycle: each module imports on its own in a fresh
+    interpreter (the Session imports ``convert``, which needs the
+    analytics engine, which imports the core)."""
+    import subprocess
+    import sys
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", f"import {module}"],
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
