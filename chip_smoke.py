@@ -46,10 +46,22 @@ Phases (any failure raises and the script exits non-zero):
      then the dispatch time of no-op micro-tasks and no-op CUs;
  10. failure recovery (a pilot killed by the FailureInjector, its data
      re-made through lineage on a survivor) and checkpoint/resume on a
-     fresh resource manager, each giving phase 8's cost.
+     fresh resource manager, each giving phase 8's cost;
+ 11. the model stack: (a) a Hymba-1.5B and a Falcon-Mamba-7B Mamba layer
+     at full width in f32, their scan through K3, against the same layer
+     on the CPU (the plain scan), then Hymba-1.5B cut to 3 layers (full,
+     windowed, full attention): forward and prefill above the window on
+     the card against the CPU, and teacher-forced decode against the
+     forward; left-padded prompts give the unpadded greedy tokens; (b) serving through ``make_prefill_step`` /
+     ``make_decode_step(sample=True)`` at full width and depth in bf16:
+     Hymba-1.5B (2 prompts of 4096 tokens, 32 greedy tokens) and
+     Falcon-Mamba-7B (2 prompts of 2048, 16 tokens), K3 launched once per
+     SSM layer a prefill and never in decode, prefill and decode times
+     and K3's share of prefill device time from torch.profiler.
 
 Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
-it and reads them after.
+it and reads them after.  Phase 11b sets K3's count to 0 before it and
+reads it after (``launches_model``).
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -131,6 +143,24 @@ TUNE_SHAPES = {
     "mamba_scan": {"B": 1, "S": 4096, "di": 3200, "st": 16},
     "kmeans": {"n": 10_000, "k": 5_000, "d": 3},
 }
+# phase 11a: one Mamba layer over two of the reference's scan chunks, then
+# Hymba-1.5B cut to 3 layers, forward at 4096 and prefill at 3072 tokens
+# (both above its 2048 window and multiples of the 1024 attention chunk)
+# and teacher-forced decode after the prompt.  Tolerances: K3's own for
+# one layer; through three f32 layers at full width the card and the CPU
+# sum in other orders (1e-3); decode against forward is the reference's
+# (tests/test_arch_smoke.py)
+LAYER_B, LAYER_S = 2, 512
+PARITY_S, PARITY_PROMPT, PARITY_DECODE = 4096, 3072, 16
+LAYER_TOL, MODEL_TOL, DECODE_TOL = 1e-4, 1e-3, 2e-3
+SCAN_TOL = 1e-4       # K3 against the plain scan (phase 5's, the reference's)
+# phase 11a, bucketed prompts (tests/test_serving_engine.py's lengths)
+PAD_LAYERS, PAD_PROMPTS, PAD_BUCKET, PAD_STEPS = 2, (5, 9, 12), 16, 8
+# phase 11b: (arch, prompts, prompt length, greedy tokens), full width and
+# depth in the configs' own dtype (bf16)
+SERVE_MODELS = (("hymba-1.5b", 2, 4096, 32), ("falcon-mamba-7b", 2, 2048, 16))
+PREFILL_REPS = 3       # the first prefill warms up; the median of the rest
+SUBLAYER_REPS = 5      # Hymba's sublayers timed alone, after phase 11b
 # phase 8's DCN costs per byte (benchmarks/bench_session_placement.py)
 SESSION_DCN_COSTS = (0.0, 1e-9, 1e-7, 1e-5, 1e-3, 1.0)
 SESSION_SEED = 80      # simulate's seed is this plus the scenario's index
@@ -641,6 +671,403 @@ def phase_autotune(torch, dev, compare_kmeans):
     print(f"  kmeans: idx and minimum bitwise equal across all {len(cands)} "
           "candidate block sizes")
     return launches, recs
+
+
+def model_scan_inputs(torch, cfg, p, x):
+    """K3's inputs as a Mamba layer's prefill builds them from its input
+    `x` (``mamba_forward`` up to the scan): the post-conv x1, and a, b
+    (f32, from the model's own ``_ssm_inputs``), C in f32 and a zero h0."""
+    from repro_torch.models.layers import mamba
+    x1 = torch.nn.functional.silu(mamba._causal_conv(
+        p, (x @ p["in_proj"])[..., :cfg.ssm_d_inner]).float()).to(x.dtype)
+    a, b, Cc = mamba._ssm_inputs(cfg, p, x1)
+    h0 = torch.zeros(x.shape[0], cfg.ssm_d_inner, cfg.ssm_d_state,
+                     device=x.device)
+    return x1, (a, b, Cc.float().contiguous(), h0)
+
+
+def _serving_scan_parity(torch, dev, gen, arch: str, B: int, S: int
+                         ) -> float:
+    """K3 at the shape phase 11b's prefill gives it, on the inputs a
+    Mamba layer of `arch` (full width, its own dtype) builds from a B x S
+    input, against the plain scan on the same inputs at SCAN_TOL."""
+    from repro_torch import configs
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+    from repro_torch.models.layers import mamba
+    cfg = configs.get(arch)
+    di, st = cfg.ssm_d_inner, cfg.ssm_d_state
+    p = mamba.init_mamba(cfg, gen)
+    x = randn(torch, gen, dev, B, S, cfg.d_model, dtype=cfg.param_dtype)
+    with torch.inference_mode():
+        _, args = model_scan_inputs(torch, cfg, p, x)
+        del x
+        check(all(t.dtype == torch.float32 for t in args)
+              and tuple(args[0].shape) == (B, S, di, st),
+              f"{arch} scan inputs: {[(t.dtype, tuple(t.shape)) for t in args]}")
+        y, h = ms_ops.scan(*args)
+        yr, hr = ms_ref.scan(*args)
+        torch.cuda.synchronize()
+    check(tuple(y.shape) == (B, S, di) and tuple(h.shape) == (B, di, st),
+          f"{arch} scan at the serving shape: bad outputs")
+    err = max(held(torch, y, yr, SCAN_TOL, f"{arch} serving scan y"),
+              held(torch, h, hr, SCAN_TOL, f"{arch} serving scan h_last"))
+    print(f"  {arch} K3 at the serving shape (B {B}, S {S}, d_inner {di}, "
+          f"d_state {st}; a, b, C from the layer's own _ssm_inputs, "
+          f"{cfg.dtype} weights): vs plain scan max |err| {err:.3e} "
+          f"(tol {SCAN_TOL})")
+    return err
+
+
+def _mamba_layer_parity(torch, dev, gen, arch: str) -> float:
+    """One Mamba layer of `arch` at full width in f32: on the card (one
+    K3 launch) against the same layer and weights on the CPU (the plain
+    scan), out, h_last and the conv cache at LAYER_TOL."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models.layers import mamba
+    from repro_torch.util import tree_map
+    cfg = dataclasses.replace(configs.get(arch), dtype="float32")
+    p = mamba.init_mamba(cfg, gen)
+    x = randn(torch, gen, dev, LAYER_B, LAYER_S, cfg.d_model)
+    before = ms_ops.LAUNCHES
+    with torch.inference_mode():
+        out, cache = mamba.mamba_forward(cfg, p, x)
+        torch.cuda.synchronize()
+        check(ms_ops.LAUNCHES - before == 1,
+              f"{arch} layer: {ms_ops.LAUNCHES - before} K3 launches, want 1")
+        out_c, cache_c = mamba.mamba_forward(
+            cfg, tree_map(lambda t: t.cpu(), p), x.cpu())
+    err = max(held(torch, out.cpu(), out_c, LAYER_TOL, f"{arch} layer out"),
+              *(held(torch, cache[k].cpu(), cache_c[k], LAYER_TOL,
+                     f"{arch} layer {k}") for k in ("h", "conv")))
+    print(f"  {arch} Mamba layer (B {LAYER_B}, S {LAYER_S}, d_inner "
+          f"{cfg.ssm_d_inner}, d_state {cfg.ssm_d_state}, f32): card (K3) "
+          f"vs CPU (plain scan) max |err| {err:.3e} (tol {LAYER_TOL})")
+    return err
+
+
+def _padded_vs_unpadded(torch, dev) -> float:
+    """Llama-3.2-1B at full width cut to PAD_LAYERS layers, f32: each
+    prompt of PAD_PROMPTS left-padded to PAD_BUCKET (pad mask,
+    pad-relative positions, ``start``) gives the unpadded run's greedy
+    tokens through PAD_STEPS decode steps.  Returns the largest logit
+    difference (0 when bit for bit, as on the CPU)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    cfg = dataclasses.replace(configs.get("llama3.2-1b"), n_layers=PAD_LAYERS,
+                              dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    params = tf.init_params(cfg, gen, device=dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg,
+                                                                sample=True)
+
+    def serve(prompt, bucket):
+        pad = bucket - prompt.shape[0]
+        toks = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+        toks[0, pad:] = prompt
+        slots = torch.arange(bucket, device=dev)
+        caches, logits = prefill(params, {"tokens": toks,
+                                          "positions": slots - pad,
+                                          "pad_mask": slots >= pad})
+        caches = tf.grow_caches(caches, tf.init_caches(
+            cfg, 1, bucket + PAD_STEPS, device=dev))
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        outs, toks_out = [logits], [tok]
+        for t in range(PAD_STEPS):
+            caches, logits, tok = decode(
+                params, caches, tok,
+                torch.tensor([bucket + t], device=dev),
+                torch.tensor([pad], device=dev))
+            outs.append(logits)
+            toks_out.append(tok)
+        return outs, torch.cat(toks_out, 1)
+
+    worst, bitwise = 0.0, True
+    for n in PAD_PROMPTS:
+        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen,
+                               device=dev, dtype=torch.int32)
+        (lp, tp), (lu, tu) = serve(prompt, PAD_BUCKET), serve(prompt, n)
+        check(torch.equal(tp, tu), f"padded prompt of {n}: greedy tokens "
+              f"{tp.tolist()} vs unpadded {tu.tolist()}")
+        for a, b in zip(lp, lu):
+            bitwise &= torch.equal(a, b)
+            worst = max(worst, (a - b).abs().max().item())
+    print(f"  Llama-3.2-1B width, {PAD_LAYERS} layers, f32: prompts "
+          f"{PAD_PROMPTS} left-padded to {PAD_BUCKET} give the unpadded "
+          f"greedy tokens over {PAD_STEPS} steps; logits "
+          f"{'bit for bit equal' if bitwise else 'not bitwise equal'}, max "
+          f"|diff| {worst:.3e}")
+    return worst
+
+
+def phase_model_parity(torch, dev) -> dict:
+    """11a. Layer and model parity at full width, f32: a Hymba-1.5B and a
+    Falcon-Mamba-7B Mamba layer, K3 at each shape phase 11b's prefill
+    gives it (B = 2 included), then Hymba-1.5B cut to 3 layers (full,
+    windowed, full attention): forward at PARITY_S and prefill at
+    PARITY_PROMPT on the card against the CPU, then a teacher-forced
+    decode on the card against the card's forward."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.util import tree_map
+    print("phase 11a: model layers and a 3-layer Hymba-1.5B at full width, "
+          "card against CPU (f32)")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs = {f"{arch} mamba layer": _mamba_layer_parity(torch, dev, gen, arch)
+            for arch in ("hymba-1.5b", "falcon-mamba-7b")}
+    for arch, B, S, _ in SERVE_MODELS:
+        errs[f"{arch} K3 at serving shape"] = _serving_scan_parity(
+            torch, dev, gen, arch, B, S)
+        torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(configs.get("hymba-1.5b"), n_layers=3,
+                              full_attn_layers=(0, 2), dtype="float32")
+    windows = [seg.window for seg in tf.build_segments(cfg)]
+    check(windows == [0, cfg.sliding_window, 0], f"segments {windows}")
+    params = tf.init_params(cfg, gen, device=dev)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PARITY_S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    prompt = tokens[:, :PARITY_PROMPT]
+    with torch.inference_mode():
+        before = ms_ops.LAUNCHES
+        logits, _ = tf.forward(cfg, params, {"tokens": tokens})
+        caches, last = tf.prefill(cfg, params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        check(ms_ops.LAUNCHES - before == 2 * cfg.n_layers,
+              f"3-layer forward + prefill: {ms_ops.LAUNCHES - before} K3 "
+              f"launches, want {2 * cfg.n_layers}")
+        logits_c, _ = tf.forward(cfg, cpu_params, {"tokens": tokens.cpu()})
+        caches_c, last_c = tf.prefill(cfg, cpu_params,
+                                      {"tokens": prompt.cpu()})
+        errs["forward logits"] = held(torch, logits.cpu(), logits_c,
+                                      MODEL_TOL, "3-layer forward logits")
+        errs["prefill logits"] = held(torch, last.cpu(), last_c, MODEL_TOL,
+                                      "3-layer prefill logits")
+        errs["prefill caches"] = max(
+            held(torch, c[k].cpu(), cc[k], MODEL_TOL, f"prefill cache {k}")
+            for c, cc in zip(caches, caches_c) for k in c)
+        check(caches[1]["k"].shape[2] == cfg.sliding_window,
+              "the windowed layer's prefill cache is not one window long")
+        del logits_c, caches_c, cpu_params
+        dec = tf.grow_caches(caches, tf.init_caches(cfg, 1, PARITY_S,
+                                                    device=dev))
+        worst = 0.0
+        for t in range(PARITY_PROMPT, PARITY_PROMPT + PARITY_DECODE):
+            dec, lg = tf.decode_step(
+                cfg, params, dec, tokens[:, t:t + 1],
+                torch.full((1,), t, dtype=torch.int32, device=dev))
+            worst = max(worst, held(torch, lg[:, 0], logits[:, t],
+                                    DECODE_TOL, f"decode step {t}"))
+        errs["decode vs forward"] = worst
+    print(f"  3-layer Hymba-1.5B (windows {windows}): forward S {PARITY_S}, "
+          f"prefill S {PARITY_PROMPT} (ring-buffer roll, chunked attention), "
+          f"card vs CPU max |err| logits {errs['forward logits']:.3e} / "
+          f"{errs['prefill logits']:.3e}, caches "
+          f"{errs['prefill caches']:.3e} (tol {MODEL_TOL}); "
+          f"{PARITY_DECODE} teacher-forced decode steps vs forward "
+          f"{worst:.3e} (tol {DECODE_TOL})")
+    errs["padded vs unpadded logits"] = _padded_vs_unpadded(torch, dev)
+    return errs
+
+
+def _device_profile(torch, fn) -> dict:
+    """`fn` once under torch.profiler: device busy time (self device time
+    of every kernel; one stream, so they do not overlap) and K3's part."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    k3 = sum(dev_us(e) for e in kernels if "mamba_scan" in e.key) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy, "k3_device_ms": k3,
+            "k3_share": k3 / busy if busy else None,
+            "busy_share": busy / wall if busy else None,
+            "kernels": len(kernels),
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_device_ms": [[e.key[:96], dev_us(e) / 1e3] for e in
+                              sorted(kernels, key=dev_us, reverse=True)[:8]]}
+
+
+def _share(x) -> str:
+    return f"{100 * x:.1f} %" if x is not None else "not measured"
+
+
+def serve_model(torch, dev, arch: str, B: int, S: int, new: int) -> dict:
+    """Serve `arch` at full width and depth in its own dtype through the
+    serving steps: PREFILL_REPS prefills of B prompts of S tokens (the
+    first one warms up), one more under the profiler, then the caches
+    grown and `new` greedy decode steps.  K3 rises by the SSM layer count
+    per prefill and by 0 per decode step."""
+    from repro_torch import configs
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.util import tree_map
+    cfg = configs.get(arch)
+    n_ssm = sum(s.n_layers for s in tf.build_segments(cfg) if s.ssm)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    params = tf.init_params(cfg, gen, device=dev)
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg, sample=True)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    V = cfg.vocab_size
+
+    def counted(fn, want: int, label: str):
+        before = ms_ops.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(ms_ops.LAUNCHES - before == want,
+              f"{arch} {label}: {ms_ops.LAUNCHES - before} K3 launches, "
+              f"want {want}")
+        return out, ms
+
+    prefill_ms = []
+    for _ in range(PREFILL_REPS):
+        (caches, logits), ms = counted(lambda: prefill(params, batch), n_ssm,
+                                       "prefill")
+        prefill_ms.append(ms)
+        check(tuple(logits.shape) == (B, 1, cfg.vocab_padded)
+              and bool(torch.isfinite(logits[..., :V]).all()),
+              f"{arch} prefill: bad logits")
+    before = ms_ops.LAUNCHES
+    prof = _device_profile(torch, lambda: prefill(params, batch))
+    check(ms_ops.LAUNCHES - before == n_ssm, f"{arch} profiled prefill: "
+          f"{ms_ops.LAUNCHES - before} K3 launches, want {n_ssm}")
+    # one slot more than the timed steps: the last step runs profiled
+    dec = tf.grow_caches(caches, tf.init_caches(cfg, B, S + new + 1,
+                                                device=dev))
+    tok = logits[:, -1, :V].argmax(-1).to(torch.int32)[:, None]
+    out, step_ms = [tok], []
+    for t in range(new + 1):
+        pos = torch.full((B,), S + t, dtype=torch.int32, device=dev)
+        if t == new:
+            res = {}
+            before = ms_ops.LAUNCHES
+            dprof = _device_profile(torch, lambda: res.update(
+                out=decode(params, dec, tok, pos)))
+            check(ms_ops.LAUNCHES == before, f"{arch} profiled decode "
+                  "step launched K3")
+            dec, lg, tok = res["out"]
+        else:
+            (dec, lg, tok), ms = counted(
+                lambda: decode(params, dec, tok, pos), 0, f"decode step {t}")
+            step_ms.append(ms)
+        check(bool(torch.isfinite(lg[..., :V]).all()),
+              f"{arch} decode step {t}: non-finite logits")
+        out.append(tok)
+    gen_toks = torch.cat(out, dim=1)
+    check(bool(((gen_toks >= 0) & (gen_toks < V)).all()),
+          f"{arch}: a sampled token outside the vocabulary")
+    timed = prefill_ms[1:]
+    rec = {"arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
+           "ssm_layers": n_ssm, "params": sum(sizes), "B": B, "S": S,
+           "new_tokens": new, "prefill_ms": statistics.median(timed),
+           "prefill_ms_all": prefill_ms,
+           "prefill_tokens_per_s": B * S / (statistics.median(timed) / 1e3),
+           "decode_ms_per_token": statistics.median(step_ms),
+           "decode_ms_all": step_ms,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "k3_launches_per_prefill": n_ssm, "prefill_profile": prof,
+           "decode_profile": dprof}
+    print(f"  {arch} ({cfg.n_layers} layers, {n_ssm} SSM, {sum(sizes)} "
+          f"params, {cfg.dtype}, B {B}, S {S}): prefill "
+          f"{rec['prefill_ms']:.3f} ms (median of {len(timed)}; first "
+          f"{prefill_ms[0]:.3f}), {rec['prefill_tokens_per_s']:.0f} tokens/s; "
+          f"decode {rec['decode_ms_per_token']:.3f} ms a step of {B} tokens "
+          f"(median of {new}); K3 {n_ssm} launches a prefill, 0 a decode "
+          f"step; peak {rec['peak_memory_gb']:.2f} GB")
+    for label, pr in (("prefill", prof), ("decode step", dprof)):
+        print(f"    profiled {label}: wall {pr['wall_ms']:.3f} ms, device "
+              f"busy {pr['device_busy_ms']:.3f} ms ({_share(pr['busy_share'])}"
+              f"), {pr['kernel_launches']} device kernels of "
+              f"{pr['kernels']} names; K3 {pr['k3_device_ms']:.3f} "
+              f"ms ({_share(pr['k3_share'])} of device time)")
+        for key, ms in pr["top_device_ms"]:
+            print(f"      device {ms:9.4f} ms  {key}")
+    print(f"    greedy tokens, row 0: {gen_toks[0, :12].tolist()} ...")
+    return rec
+
+
+def hymba_sublayers(torch, dev, B: int, S: int) -> dict:
+    """Where a Hymba-1.5B prefill layer spends its device time: each
+    sublayer of one full-attention and one windowed layer (bf16, full
+    width, B x S) timed alone with CUDA events, K3 and the f32 scan
+    inputs it reads (``_ssm_inputs``) among them."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import attention, common, mamba
+    cfg = dataclasses.replace(configs.get("hymba-1.5b"), n_layers=2,
+                              full_attn_layers=(0,))
+    gen = torch.Generator(device=dev).manual_seed(14)
+    params = tf.init_params(cfg, gen, device=dev)
+    full, windowed = (tf._layer(sp, 0) for sp in params["segments"])
+    x = randn(torch, gen, dev, B, S, cfg.d_model, dtype=cfg.param_dtype)
+    pos = torch.arange(S, device=dev)
+    out = {}
+    with torch.inference_mode():
+        h = common.rmsnorm(full["ln1"], x, cfg.norm_eps)
+        x1, scan_args = model_scan_inputs(torch, cfg, full["ssm"], h)
+        out["attention, full"] = cuda_ms(torch, lambda: attention.gqa_forward(
+            cfg, full["attn"], h, pos), SUBLAYER_REPS)
+        out[f"attention, window {cfg.sliding_window}"] = cuda_ms(
+            torch, lambda: attention.gqa_forward(
+                cfg, windowed["attn"], h, pos, window=cfg.sliding_window),
+            SUBLAYER_REPS)
+        out["mamba (all)"] = cuda_ms(torch, lambda: mamba.mamba_forward(
+            cfg, full["ssm"], h), SUBLAYER_REPS)
+        out["mamba: _ssm_inputs (a, b f32)"] = cuda_ms(
+            torch, lambda: mamba._ssm_inputs(cfg, full["ssm"], x1),
+            SUBLAYER_REPS)
+        out["mamba: K3 scan"] = cuda_ms(
+            torch, lambda: ms_ops.scan(*scan_args), SUBLAYER_REPS)
+        out["mlp"] = cuda_ms(torch, lambda: common.mlp(full["mlp"], h),
+                             SUBLAYER_REPS)
+        out["rmsnorm"] = cuda_ms(torch, lambda: common.rmsnorm(
+            full["ln1"], x, cfg.norm_eps), SUBLAYER_REPS)
+    print(f"  Hymba-1.5B layer breakdown (bf16, B {B}, S {S}; CUDA events, "
+          f"mean of {SUBLAYER_REPS}): " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in out.items()))
+    return out
+
+
+def phase_serving(torch, dev) -> dict:
+    """11b. Serving at full width and full depth through the serving
+    steps: Hymba-1.5B (32 layers, bf16), then Falcon-Mamba-7B (64 layers,
+    bf16).  Returns the per-model records."""
+    print("phase 11b: serving at full width and depth (make_prefill_step, "
+          "make_decode_step(sample=True))")
+    recs = {}
+    for arch, B, S, new in SERVE_MODELS:
+        recs[arch] = serve_model(torch, dev, arch, B, S, new)
+        torch.cuda.empty_cache()
+    return recs
 
 
 def fig8_stages(km, n: int, k: int, seed: int, runs: dict | None = None,
@@ -1296,6 +1723,16 @@ def run(torch) -> int:
     tuned_launches, tuned = phase_autotune(
         torch, dev, lambda p, c, label: compare_assign(torch, ops, ref, p, c,
                                                        label))
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    model_errs = phase_model_parity(torch, dev)
+    ms_ops.LAUNCHES = 0                        # phase 11b's window
+    serving = phase_serving(torch, dev)
+    model_launches = ms_ops.LAUNCHES
+    check(model_launches == sum(
+        r["ssm_layers"] * (PREFILL_REPS + 1) for r in serving.values()),
+        f"phase 11b launched K3 {model_launches} times")
+    print(f"  phase 11b: K3 launched {model_launches} times")
+    sublayers = hymba_sublayers(torch, dev, *SERVE_MODELS[0][1:3])
     t_bytes = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S
     t_ops = sum(s["flops"] for s in shapes) / FP32_FLOP_PER_S
     record = {"kernels": [{
@@ -1332,7 +1769,11 @@ def run(torch) -> int:
         kernel_entry(
         "mamba_scan", "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
         "src/repro/kernels/mamba_scan/mamba_scan.py:51",
-        tuned_launches["mamba_scan"], scan_err, scan_rows, library=False)],
+        tuned_launches["mamba_scan"], max(scan_err, *(
+            e for k, e in model_errs.items()
+            if k.endswith("K3 at serving shape"))), scan_rows,
+        library=False) | {
+        "launches_model": model_launches}],
         "main_path_wall_ms": {f"{n}/{p}": 1e3 * t
                               for (n, p), t in walls.items()},
         "autotune": {fam: {k: rec[k] for k in (
@@ -1340,7 +1781,9 @@ def run(torch) -> int:
             "speedup_vs_default", "n_candidates", "wall_s")}
             for fam, rec in tuned.items()},
         "profile": breakdown, "session": session_rows, "raptor": raptor,
-        "recovery": recovery, "phases_8_10_s": phases_s, "build_s": build_s}
+        "recovery": recovery, "phases_8_10_s": phases_s, "build_s": build_s,
+        "model_parity_max_abs_err": model_errs, "serving": serving,
+        "hymba_sublayer_ms": sublayers}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,16 +26,7 @@ import torch
 
 from repro_torch.core.dataplane import (DataPlane, DeviceGrid, Link,
                                         Placement, ShardedTensor, place)
-
-
-def _tree_map(fn: Callable, *trees: Any) -> Any:
-    """Map `fn` over matching tensors of (nested) tuples/lists/dicts."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, (tuple, list)):
-        return type(first)(_tree_map(fn, *parts) for parts in zip(*trees))
-    return fn(*trees)
+from repro_torch.util import tree_map
 
 
 class AnalyticsEngine:
@@ -96,8 +87,8 @@ class AnalyticsEngine:
         for block, dev in blocks:
             local = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
                           for a in args)
-            part = _tree_map(lambda t: t.to(home), map_fn(block, *local))
-            total = part if total is None else _tree_map(torch.add, total, part)
+            part = tree_map(lambda t: t.to(home), map_fn(block, *local))
+            total = part if total is None else tree_map(torch.add, total, part)
         return total
 
     # ----------------------------------------------------------- data paths

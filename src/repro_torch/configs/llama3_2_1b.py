@@ -1,0 +1,33 @@
+"""Llama-3.2-1B — small llama3 dense GQA [hf:meta-llama/Llama-3.2-1B; unverified].
+
+16L d_model=2048 32H (GQA kv=8, head_dim=64) d_ff=8192 vocab=128256.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b",
+    family="dense",
+    n_layers=16,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    head_dim=64,
+    d_ff=8192,
+    vocab_size=128256,
+    rope_theta=500000.0,
+    tie_embeddings=True,
+)
+
+SMOKE_CONFIG = ModelConfig(
+    name="llama3.2-1b-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    head_dim=16,
+    d_ff=128,
+    vocab_size=512,
+    tie_embeddings=True,
+    dtype="float32",
+)

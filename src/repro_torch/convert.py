@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.dataplane import DataPlane, Placement, place
+from repro_torch.util import resolve_device, tree_map
 
 
 def to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -36,6 +37,19 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
         import ml_dtypes
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def params_from_numpy(tree: Any, device: Any = "cuda") -> Any:
+    """The same nested dicts and lists with every numpy leaf a tensor on
+    `device` (e.g. the reference's ``jax.tree.map(np.asarray, params)``)."""
+    device = resolve_device(device)
+    return tree_map(lambda a: to_tensor(a).to(device), tree)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The same nested dicts and lists with every tensor leaf a numpy
+    array (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    return tree_map(to_numpy, tree)
 
 
 def _split(target: Any) -> tuple:

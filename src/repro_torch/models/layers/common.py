@@ -1,0 +1,114 @@
+"""Shared model primitives: norms, RoPE, SwiGLU MLP, embeddings.
+
+The port of ``repro.models.layers.common`` with the same cast points:
+RMSNorm's variance in f32, RoPE in f32, SwiGLU's silu in f32, logits in
+f32.  Inits draw from an explicit ``torch.Generator`` on its own device;
+``lead`` prepends stacked-layer axes to every leaf.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+def normal_init(gen: torch.Generator, shape, dtype, stddev: float):
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * stddev).to(dtype)
+
+
+# ---------------------------------------------------------------- RMSNorm
+def init_rmsnorm(d: int, gen: torch.Generator, lead: Tuple = ()) -> Params:
+    return {"scale": torch.ones((*lead, d), device=gen.device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    # the square in x's dtype, the mean accumulated in f32 (as jnp.mean
+    # with dtype=f32 does)
+    var = x.square().mean(dim=-1, keepdim=True, dtype=torch.float32)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * p["scale"].to(x.dtype)
+
+
+# ---------------------------------------------------------------- RoPE
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) int -> cos/sin of shape (..., head_dim//2)."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                         device=positions.device), exps)
+    ang = positions.float()[..., None] * freqs  # (..., half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim); cos/sin: (..., S, head_dim//2)."""
+    dtype = x.dtype
+    x = x.float()
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = cos[..., None, :]  # broadcast over heads
+    sin = sin[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(dtype)
+
+
+# ---------------------------------------------------------------- SwiGLU MLP
+def init_mlp(cfg, gen: torch.Generator, d_ff: int, lead: Tuple = ()
+             ) -> Params:
+    d = cfg.d_model
+    dt = cfg.param_dtype
+    s_in = d ** -0.5
+    s_out = d_ff ** -0.5
+    return {
+        "w_gate": normal_init(gen, (*lead, d, d_ff), dt, s_in),
+        "w_up": normal_init(gen, (*lead, d, d_ff), dt, s_in),
+        "w_down": normal_init(gen, (*lead, d_ff, d), dt, s_out),
+    }
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = x @ p["w_gate"]
+    u = x @ p["w_up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------- Embedding
+def init_embedding(cfg, gen: torch.Generator) -> Params:
+    dt = cfg.param_dtype
+    p = {"embed": normal_init(gen, (cfg.vocab_padded, cfg.d_model), dt, 0.02)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = normal_init(gen, (cfg.vocab_padded, cfg.d_model), dt,
+                                   cfg.d_model ** -0.5)
+    return p
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["embed"][tokens.long()]
+
+
+def unembed(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the padded vocab; padding ids masked to -1e30."""
+    table = p["embed"] if cfg.tie_embeddings else p["lm_head"]
+    logits = (x @ table.T).float()
+    if cfg.vocab_padded != cfg.vocab_size:
+        pad_mask = torch.arange(cfg.vocab_padded,
+                                device=x.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad_mask, -1e30)
+    return logits
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Mean token-level NLL over masked positions. logits f32 (..., V)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)

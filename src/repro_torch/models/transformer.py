@@ -1,0 +1,448 @@
+"""Unified transformer stack for the whole model zoo.
+
+The port of ``repro.models.transformer``.  Every architecture is a
+sequence of **segments**: contiguous runs of layers with identical block
+structure, whose parameters are stacked on a leading layer axis (the
+reference's tree, key for key).  A Python loop over the layer index
+takes the place of the reference's ``lax.scan``.  Heterogeneous stacks
+(Hymba's full-attention islands, DeepSeek-V2's leading dense layer)
+become multiple segments.
+
+Block anatomy (pre-norm residual):
+    x += attn(ln(x))            [if seg.attn]      (GQA or MLA)
+    x += ssm(ln(x))             [if seg.ssm]       (parallel to attn for Hymba)
+    x += cross_attn(ln(x), enc) [if seg.cross]
+    x += ffn(ln(x))             [if seg.ffn]       (SwiGLU MLP or MoE)
+
+Every SSM layer's prefill scan is one launch of the selective-scan kernel
+(K3, see :mod:`repro_torch.models.layers.mamba`).  The reference's
+training and sharding machinery (remat, activation specs, the gradient
+dtype guard, optimization barriers, checkpoint names) is not part of
+this forward-only port.  ``decode_step`` updates the caches in place and
+returns them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers import common, mamba as mamba_lib, moe as moe_lib
+from repro_torch.util import Device, resolve_device, tree_map
+
+Params = Dict[str, Any]
+
+
+class Segment(NamedTuple):
+    n_layers: int
+    attn: Optional[str]     # 'gqa' | 'mla' | None
+    ffn: Optional[str]      # 'mlp' | 'moe' | None
+    ssm: bool
+    window: int             # 0 = full attention
+    cross: bool             # decoder cross-attention (enc-dec archs)
+    causal: bool
+    d_ff: int               # MLP width when ffn == 'mlp'
+
+
+def build_segments(cfg: ModelConfig, *, role: str = "decoder") -> List[Segment]:
+    if role == "encoder":
+        return [Segment(cfg.n_encoder_layers, "gqa", "mlp", False, 0, False, False, cfg.d_ff)]
+    if cfg.family == "ssm":
+        return [Segment(cfg.n_layers, None, None, True, 0, False, True, 0)]
+    if cfg.family == "hybrid":
+        segs: List[Segment] = []
+        full = set(cfg.full_attn_layers)
+        i = 0
+        while i < cfg.n_layers:
+            w = 0 if i in full else cfg.sliding_window
+            j = i
+            while j < cfg.n_layers and (0 if j in full else cfg.sliding_window) == w:
+                j += 1
+            segs.append(Segment(j - i, "gqa", "mlp", True, w, False, True, cfg.d_ff))
+            i = j
+        return segs
+    attn = "mla" if cfg.use_mla else "gqa"
+    if cfg.family == "moe":
+        segs = []
+        if cfg.moe_first_k_dense:
+            segs.append(Segment(cfg.moe_first_k_dense, attn, "mlp", False, 0, False, True,
+                                cfg.dense_d_ff))
+        segs.append(Segment(cfg.n_layers - cfg.moe_first_k_dense, attn, "moe", False, 0,
+                            False, True, 0))
+        return segs
+    cross = cfg.is_encoder_decoder
+    return [Segment(cfg.n_layers, attn, "mlp", False, 0, cross, True, cfg.d_ff)]
+
+
+# ------------------------------------------------------------------ blocks
+def init_block(cfg: ModelConfig, seg: Segment, gen: torch.Generator,
+               lead: Tuple = ()) -> Params:
+    """One block's params, or `lead`-stacked blocks (drawn on gen's device)."""
+    p: Params = {"ln1": common.init_rmsnorm(cfg.d_model, gen, lead)}
+    if seg.attn == "gqa":
+        p["attn"] = attn_lib.init_gqa(cfg, gen, lead)
+    elif seg.attn == "mla":
+        p["attn"] = attn_lib.init_mla(cfg, gen, lead)
+    if seg.ssm:
+        p["ssm"] = mamba_lib.init_mamba(cfg, gen, lead)
+        if seg.attn:  # Hymba: parallel heads fused by normalized averaging
+            p["ln_attn_out"] = common.init_rmsnorm(cfg.d_model, gen, lead)
+            p["ln_ssm_out"] = common.init_rmsnorm(cfg.d_model, gen, lead)
+    if seg.cross:
+        p["cross"] = attn_lib.init_gqa(cfg, gen, lead)
+        p["ln_cross"] = common.init_rmsnorm(cfg.d_model, gen, lead)
+    if seg.ffn:
+        p["ln2"] = common.init_rmsnorm(cfg.d_model, gen, lead)
+        if seg.ffn == "mlp":
+            p["mlp"] = common.init_mlp(cfg, gen, seg.d_ff, lead)
+        else:
+            p["moe"] = moe_lib.init_moe(cfg, gen, lead)
+    return p
+
+
+def _mixer_forward(cfg, seg: Segment, p: Params, x, positions,
+                   k_valid=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Token-mixing sublayer(s) on a full sequence; returns (dx, cache)."""
+    h = common.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    cache: Dict[str, Any] = {}
+    parts = []
+    if seg.attn == "gqa":
+        a, kv = attn_lib.gqa_forward(cfg, p["attn"], h, positions,
+                                     causal=seg.causal, window=seg.window,
+                                     k_valid=k_valid)
+        cache.update(kv)
+        parts.append(a)
+    elif seg.attn == "mla":
+        a, kv = attn_lib.mla_forward(cfg, p["attn"], h, positions,
+                                     k_valid=k_valid)
+        cache.update(kv)
+        parts.append(a)
+    if seg.ssm:
+        s, sc = mamba_lib.mamba_forward(cfg, p["ssm"], h)
+        cache.update(sc)
+        parts.append(s)
+    if len(parts) == 2:  # Hymba fusion: mean of per-branch RMS-normed outputs
+        a = common.rmsnorm(p["ln_attn_out"], parts[0], cfg.norm_eps)
+        s = common.rmsnorm(p["ln_ssm_out"], parts[1], cfg.norm_eps)
+        dx = 0.5 * (a + s)
+    else:
+        dx = parts[0]
+    return dx, cache
+
+
+def block_forward(cfg, seg: Segment, p: Params, x, positions, enc_out=None,
+                  moe_groups: int = 1, moe_ep_axis=None, k_valid=None,
+                  ) -> Tuple[torch.Tensor, Dict[str, Any], torch.Tensor]:
+    """Full-sequence block. Returns (x, cache, moe_aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    dx, cache = _mixer_forward(cfg, seg, p, x, positions, k_valid=k_valid)
+    x = x + dx
+    if seg.cross:
+        h = common.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        k = torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wk"])
+        v = torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wv"])
+        c, ckv = attn_lib.gqa_forward(cfg, p["cross"], h, positions,
+                                      causal=False, kv_override=(k, v))
+        cache["xk"], cache["xv"] = ckv["k"], ckv["v"]
+        x = x + c
+    if seg.ffn:
+        h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if seg.ffn == "mlp":
+            x = x + common.mlp(p["mlp"], h)
+        else:
+            out, aux = moe_lib.moe_forward(cfg, p["moe"], h, groups=moe_groups,
+                                           ep_axis=moe_ep_axis)
+            x = x + out
+    return x, cache, aux
+
+
+def block_decode(cfg, seg: Segment, p: Params, x, cache: Dict[str, Any],
+                 pos, moe_groups: int = 1, moe_ep_axis=None,
+                 start=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Single-token block step. x: (B,1,d); pos: (B,); start: (B,) or None.
+    Attention caches are written in place; the SSM state comes back new."""
+    h = common.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    new_cache: Dict[str, Any] = {}
+    parts = []
+    if seg.attn == "gqa":
+        a, kv = attn_lib.gqa_decode(cfg, p["attn"], h,
+                                    {"k": cache["k"], "v": cache["v"]},
+                                    pos, window=seg.window, start=start)
+        new_cache.update(kv)
+        parts.append(a)
+    elif seg.attn == "mla":
+        a, kv = attn_lib.mla_decode(cfg, p["attn"], h,
+                                    {"ckv": cache["ckv"], "k_rope": cache["k_rope"]},
+                                    pos, start=start)
+        new_cache.update(kv)
+        parts.append(a)
+    if seg.ssm:
+        s, sc = mamba_lib.mamba_decode(cfg, p["ssm"], h,
+                                       {"conv": cache["conv"], "h": cache["h"]})
+        new_cache.update(sc)
+        parts.append(s)
+    if len(parts) == 2:
+        a = common.rmsnorm(p["ln_attn_out"], parts[0], cfg.norm_eps)
+        s = common.rmsnorm(p["ln_ssm_out"], parts[1], cfg.norm_eps)
+        dx = 0.5 * (a + s)
+    else:
+        dx = parts[0]
+    x = x + dx
+    if seg.cross:
+        h = common.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        c, _ = attn_lib.gqa_decode(cfg, p["cross"], h,
+                                   {"k": cache["xk"], "v": cache["xv"]},
+                                   pos, cross=True)
+        new_cache["xk"], new_cache["xv"] = cache["xk"], cache["xv"]
+        x = x + c
+    if seg.ffn:
+        h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if seg.ffn == "mlp":
+            x = x + common.mlp(p["mlp"], h)
+        else:
+            out, _ = moe_lib.moe_forward(cfg, p["moe"], h, groups=moe_groups,
+                                         ep_axis=moe_ep_axis)
+            x = x + out
+    return x, new_cache
+
+
+# ------------------------------------------------------------------ model
+def init_params(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
+                device: Device = "cuda") -> Params:
+    """Random params with the reference's tree, shapes and dtypes, drawn
+    from `gen` on its own device (default: a generator on `device`
+    seeded 0) and placed on `device`."""
+    device = resolve_device(device)
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+    p: Params = common.init_embedding(cfg, gen)
+    p["final_norm"] = common.init_rmsnorm(cfg.d_model, gen)
+
+    def stack(segs):
+        return [init_block(cfg, seg, gen, (seg.n_layers,)) for seg in segs]
+
+    p["segments"] = stack(build_segments(cfg))
+    if cfg.is_encoder_decoder:
+        p["enc_segments"] = stack(build_segments(cfg, role="encoder"))
+        p["enc_final_norm"] = common.init_rmsnorm(cfg.d_model, gen)
+    return tree_map(lambda t: t.to(device), p)
+
+
+def _layer(seg_params: Params, i: int) -> Params:
+    """Layer i's params: views into the stacked segment."""
+    return tree_map(lambda t: t[i], seg_params)
+
+
+def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
+                  want_cache: bool = False, moe_groups: int = 1,
+                  moe_ep_axis=None, k_valid=None):
+    """Run each segment layer by layer; returns (x, per-segment stacked
+    caches, aux sum)."""
+    caches = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg, sp in zip(segs, seg_params):
+        layer_caches, auxes = [], []
+        for i in range(seg.n_layers):
+            x, cache, aux = block_forward(cfg, seg, _layer(sp, i), x,
+                                          positions, enc_out, moe_groups,
+                                          moe_ep_axis, k_valid)
+            auxes.append(aux)
+            if want_cache:
+                layer_caches.append(cache)
+        if want_cache:
+            caches.append({k: torch.stack([c[k] for c in layer_caches])
+                           for k in layer_caches[0]})
+        else:
+            caches.append({})
+        aux_total = aux_total + torch.stack(auxes).sum()
+    return x, caches, aux_total
+
+
+def _encode(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
+    """The encoder stack of enc-dec archs over the stub frame embeddings."""
+    enc_x = batch["frame_embeds"].to(cfg.param_dtype)
+    enc_segs = build_segments(cfg, role="encoder")
+    enc_out, _, _ = _run_segments(
+        cfg, enc_segs, params["enc_segments"], enc_x,
+        torch.arange(enc_x.shape[1], device=enc_x.device))
+    return common.rmsnorm(params["enc_final_norm"], enc_out, cfg.norm_eps)
+
+
+def embed_inputs(cfg: ModelConfig, params: Params,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token + stub-frontend embedding -> (B, S, d)."""
+    x = common.embed(params, batch["tokens"])
+    if cfg.frontend == "vision":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
+def _hidden_states(cfg, params, batch, *, moe_groups=1, moe_ep_axis=None):
+    """Forward to final hidden states (pre-unembed)."""
+    enc_out = _encode(cfg, params, batch) if cfg.is_encoder_decoder else None
+    x = embed_inputs(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _, aux = _run_segments(cfg, build_segments(cfg), params["segments"],
+                              x, positions, enc_out, moe_groups=moe_groups,
+                              moe_ep_axis=moe_ep_axis)
+    return common.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, moe_groups: int = 1, moe_ep_axis=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward to logits. Returns (logits, moe_aux)."""
+    x, aux = _hidden_states(cfg, params, batch, moe_groups=moe_groups,
+                            moe_ep_axis=moe_ep_axis)
+    return common.unembed(cfg, params, x), aux
+
+
+LOSS_CHUNK = 512  # sequence-chunked CE above this length (memory-linear)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, aux_coef: float = 0.01, moe_groups: int = 1,
+            moe_ep_axis=None) -> torch.Tensor:
+    """Mean next-token NLL plus `aux_coef` times the MoE aux loss (value
+    only; the backward pass comes with the trainer)."""
+    x, aux = _hidden_states(cfg, params, batch, moe_groups=moe_groups,
+                            moe_ep_axis=moe_ep_axis)
+    labels, mask = batch["labels"], batch["mask"].float()
+    if cfg.frontend == "vision":  # frontend tokens carry no LM loss
+        pad = x.shape[1] - labels.shape[1]
+        x = x[:, pad:]
+    S = labels.shape[1]
+    if S > LOSS_CHUNK and S % LOSS_CHUNK == 0:
+        # chunk the unembed+CE over the sequence: the (B, S, V) f32
+        # logits never materialize
+        tot = torch.zeros((), device=x.device)
+        cnt = torch.zeros((), device=x.device)
+        for c in range(S // LOSS_CHUNK):
+            sl = slice(c * LOSS_CHUNK, (c + 1) * LOSS_CHUNK)
+            logits = common.unembed(cfg, params, x[:, sl])
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels[:, sl].long()[..., None])[..., 0]
+            tot = tot + torch.sum((logz - gold) * mask[:, sl])
+            cnt = cnt + torch.sum(mask[:, sl])
+        nll = tot / cnt.clamp_min(1.0)
+    else:
+        logits = common.unembed(cfg, params, x)
+        nll = common.softmax_cross_entropy(logits, labels, mask)
+    return nll + aux_coef * aux
+
+
+# ------------------------------------------------------------------ serving
+def init_cache(cfg: ModelConfig, seg: Segment, n_layers: int, batch: int,
+               max_seq: int, enc_len: int = 0, *,
+               device: Device = "cuda") -> Dict[str, Any]:
+    """Zeroed stacked decode cache for one segment."""
+    dt = cfg.param_dtype
+    S = min(max_seq, seg.window) if seg.window else max_seq
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    c: Dict[str, Any] = {}
+    if seg.attn == "gqa":
+        c["k"] = zeros(n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim_)
+        c["v"] = zeros(n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim_)
+    elif seg.attn == "mla":
+        c["ckv"] = zeros(n_layers, batch, S, cfg.kv_lora_rank)
+        c["k_rope"] = zeros(n_layers, batch, S, cfg.qk_rope_dim)
+    if seg.ssm:
+        c["conv"] = zeros(n_layers, batch, cfg.ssm_d_conv - 1, cfg.ssm_d_inner)
+        c["h"] = zeros(n_layers, batch, cfg.ssm_d_inner, cfg.ssm_d_state,
+                       dtype=torch.float32)
+    if seg.cross:
+        c["xk"] = zeros(n_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim_)
+        c["xv"] = zeros(n_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim_)
+    return c
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
+                enc_len: int = 0, *, device: Device = "cuda"
+                ) -> List[Dict[str, Any]]:
+    """Zeroed decode caches, one dict per segment (``device="meta"`` gives
+    shapes and dtypes only)."""
+    device = resolve_device(device)
+    return [init_cache(cfg, seg, seg.n_layers, batch, max_seq, enc_len,
+                       device=device)
+            for seg in build_segments(cfg)]
+
+
+def grow_caches(caches: List[Dict[str, Any]], into: List[Dict[str, Any]]
+                ) -> List[Dict[str, Any]]:
+    """Copy prefill caches (sized to the prompt) into the front of decode
+    buffers such as :func:`init_caches` gives; returns `into`."""
+    for cache, buf in zip(caches, into):
+        for k, v in cache.items():
+            buf[k][tuple(slice(0, n) for n in v.shape)].copy_(v)
+    return into
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, moe_groups: int = 1, moe_ep_axis=None,
+            positions: Optional[torch.Tensor] = None,
+            pad_mask: Optional[torch.Tensor] = None,
+            ) -> Tuple[List[Dict[str, Any]], torch.Tensor]:
+    """Run the full prompt; returns (caches, last-position logits).
+
+    For left-padded (bucketed) prompts pass ``pad_mask`` — an (S,) bool
+    that is False on pad slots, so they are never attended — and
+    ``positions = arange(S) - n_pad`` so real tokens keep the RoPE
+    positions they would have in the unpadded prompt. Together the two
+    make a padded prefill bit-identical (masked keys contribute exactly
+    zero softmax weight) to the unpadded one.
+    """
+    segs = build_segments(cfg)
+    enc_out = _encode(cfg, params, batch) if cfg.is_encoder_decoder else None
+    x = embed_inputs(cfg, params, batch)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    x, caches, _ = _run_segments(cfg, segs, params["segments"], x, positions,
+                                 enc_out, want_cache=True,
+                                 moe_groups=moe_groups,
+                                 moe_ep_axis=moe_ep_axis, k_valid=pad_mask)
+    x = common.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    logits = common.unembed(cfg, params, x)
+    # prefill caches for windowed segments keep only the trailing window
+    out_caches = []
+    for seg, cache in zip(segs, caches):
+        if seg.window and cache.get("k") is not None:
+            W = seg.window
+            S = cache["k"].shape[2]
+            if S > W:
+                # slot of absolute position p is (p % W): index i in the
+                # trailing-window slice holds p = S - W + i  ->  roll by S % W
+                cache = {k: (torch.roll(v[:, :, S - W:], S % W, dims=2)
+                             if k in ("k", "v") else v)
+                         for k, v in cache.items()}
+        out_caches.append(cache)
+    return out_caches, logits
+
+
+def decode_step(cfg: ModelConfig, params: Params, caches: List[Dict[str, Any]],
+                tokens: torch.Tensor, pos: torch.Tensor, *, moe_groups: int = 1,
+                moe_ep_axis=None, start: Optional[torch.Tensor] = None,
+                ) -> Tuple[List[Dict[str, Any]], torch.Tensor]:
+    """One decode step. tokens: (B,1) int; pos: (B,) absolute positions.
+
+    start (B,) marks the first real (non-pad) cache slot per row; pad
+    slots below it are masked out and RoPE runs pad-relative.  The caches
+    are updated in place and returned.
+    """
+    segs = build_segments(cfg)
+    x = common.embed(params, tokens)
+    for seg, sp, cache in zip(segs, params["segments"], caches):
+        for i in range(seg.n_layers):
+            lc = {k: v[i] for k, v in cache.items()}
+            x, nc = block_decode(cfg, seg, _layer(sp, i), x, lc, pos,
+                                 moe_groups=moe_groups,
+                                 moe_ep_axis=moe_ep_axis, start=start)
+            for k, v in nc.items():
+                if v is not lc[k]:     # attention buffers were written in place
+                    cache[k][i].copy_(v)
+    x = common.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return caches, common.unembed(cfg, params, x)

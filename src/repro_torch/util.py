@@ -1,0 +1,35 @@
+"""Helpers shared by every layer of the port: a map over nested
+containers of tensors, and the device an entry point runs on.
+
+It imports nothing of the port, so the core, the analytics engine,
+``convert`` and the model stack can all depend on it without pulling
+one another in.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Union
+
+import torch
+
+Device = Union[str, torch.device]
+
+
+def tree_map(fn: Callable, *trees: Any) -> Any:
+    """`fn` on matching leaves of one or more trees of nested dicts,
+    lists and tuples (the first tree gives the structure)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(tree_map(fn, *parts) for parts in zip(*trees))
+    return fn(*trees)
+
+
+def resolve_device(device: Device = "cuda") -> torch.device:
+    """`device` as a ``torch.device``; raises if it names CUDA and there
+    is none (the entry points never fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return device

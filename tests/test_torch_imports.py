@@ -31,6 +31,13 @@ def test_scan_covers_the_port():
             for k in ("kmeans", "flash_attention", "mamba_scan")} <= rel
     assert {"core/session.py", "core/raptor.py", "core/chaos.py",
             "roofline/placement.py", "roofline/terms.py"} <= rel
+    assert {"models/config.py", "models/transformer.py", "util.py",
+            "data/batches.py", "serve/step.py", "configs/__init__.py"} \
+        | {f"models/layers/{m}.py"
+           for m in ("common", "attention", "mamba", "moe")} <= rel
+    configs = {p.name for p in (ROOT / "src" / "repro" / "configs").glob(
+        "*.py")}
+    assert {f"configs/{name}" for name in configs} <= rel
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -43,7 +50,10 @@ def test_no_jax_or_reference_imports(path):
 @pytest.mark.parametrize("module", ["repro_torch.analytics",
                                     "repro_torch.convert",
                                     "repro_torch.core.session",
-                                    "repro_torch.roofline"])
+                                    "repro_torch.roofline",
+                                    "repro_torch.models.transformer",
+                                    "repro_torch.data.batches",
+                                    "repro_torch.serve"])
 def test_each_entry_module_imports_first(module):
     """No import cycle: each module imports on its own in a fresh
     interpreter (the Session imports ``convert``, which needs the
@@ -55,3 +65,22 @@ def test_each_entry_module_imports_first(module):
                          capture_output=True, text=True, timeout=120,
                          env=env)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.session",
+                                    "repro_torch.convert",
+                                    "repro_torch.analytics.engine"])
+def test_lower_layers_do_not_load_the_model_stack(module):
+    """The core, ``convert`` and the analytics engine share their helpers
+    through ``repro_torch.util``: importing one of them loads neither the
+    model stack nor, through it, the selective-scan kernel."""
+    import subprocess
+    import sys
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    code = (f"import sys, {module}; "
+            "print(sorted(m for m in sys.modules if m.startswith("
+            "('repro_torch.models', 'repro_torch.kernels.mamba_scan'))))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]", out.stdout
