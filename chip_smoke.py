@@ -57,11 +57,26 @@ Phases (any failure raises and the script exits non-zero):
      Hymba-1.5B (2 prompts of 4096 tokens, 32 greedy tokens) and
      Falcon-Mamba-7B (2 prompts of 2048, 16 tokens), K3 launched once per
      SSM layer a prefill and never in decode, prefill and decode times
-     and K3's share of prefill device time from torch.profiler.
+     and K3's share of prefill device time from torch.profiler;
+ 12. the serving engine (``serve/engine.py``, ``kv_pages.py``,
+     ``router.py``, ``Session.serve_pool``) at Hymba-1.5B's full width
+     and depth in bf16, 8 prompts of 512-4096 tokens, 16 new tokens
+     each: (a) one engine of 4 slots, each request alone and then all at
+     once (token for token equal, fewer decode steps than tokens, K3 32
+     times a prefill and never in a decode step), one decode step under
+     torch.profiler; (b) ``Session.serve_pool`` over pilots d0, d1 and
+     pf on the card, prefill as Raptor micro-tasks on pf, at DCN 1e-3
+     (every splice local) and at 1e-15 with one slot an engine (pages
+     shipped, ledger == router bytes), held against each request alone
+     in an engine of 1 slot; (c) decode pilot d1 recovered through the
+     ControlPlane mid-flight, its requests served on pf.  Every request
+     must end with max_new tokens and no error; wall, req/s, time to
+     first token and per output token are printed for each run.
 
 Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
 it and reads them after.  Phase 11b sets K3's count to 0 before it and
-reads it after (``launches_model``).
+reads it after (``launches_model``), and so does phase 12
+(``launches_engine``).
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -161,6 +176,19 @@ PAD_LAYERS, PAD_PROMPTS, PAD_BUCKET, PAD_STEPS = 2, (5, 9, 12), 16, 8
 SERVE_MODELS = (("hymba-1.5b", 2, 4096, 32), ("falcon-mamba-7b", 2, 2048, 16))
 PREFILL_REPS = 3       # the first prefill warms up; the median of the rest
 SUBLAYER_REPS = 5      # Hymba's sublayers timed alone, after phase 11b
+# phase 12: the serving engine at full width and depth in the config's
+# dtype (bf16): prompt lengths uniform in ENGINE_PROMPT, token ids uniform
+# in the vocabulary, from ENGINE_SEED (which also seeds the weights).
+# Buckets of 1024: above 2048 tokens the prefill's attention runs in
+# chunks of 1024 and takes only whole chunks (as the reference's does)
+ENGINE_ARCH = "hymba-1.5b"
+ENGINE_REQUESTS = 8
+ENGINE_PROMPT = (512, 4096)
+ENGINE_MAX_NEW = 16
+ENGINE_BUCKET = 1024
+ENGINE_MAX_SEQ = 4608
+ENGINE_SLOTS = 4
+ENGINE_SEED = 17
 # phase 8's DCN costs per byte (benchmarks/bench_session_placement.py)
 SESSION_DCN_COSTS = (0.0, 1e-9, 1e-7, 1e-5, 1e-3, 1.0)
 SESSION_SEED = 80      # simulate's seed is this plus the scenario's index
@@ -1070,6 +1098,305 @@ def phase_serving(torch, dev) -> dict:
     return recs
 
 
+def engine_prompts(vocab: int) -> list:
+    """Phase 12's traffic: ENGINE_REQUESTS prompts of uniform length in
+    ENGINE_PROMPT and uniform token ids, from a fixed seed."""
+    import numpy as np
+    rng = np.random.default_rng(ENGINE_SEED)
+    lens = rng.integers(ENGINE_PROMPT[0], ENGINE_PROMPT[1] + 1,
+                        ENGINE_REQUESTS)
+    return [rng.integers(0, vocab, (int(n),), dtype=np.int32) for n in lens]
+
+
+def counted_backend(backend, calls: list, n_ssm: int | None = None):
+    """`backend` with its prefill calls appended to `calls`.  With
+    `n_ssm` (one thread only) each prefill must launch K3 exactly n_ssm
+    times and each decode step none, counted around the call."""
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    prefill, step = backend.prefill, backend.step
+
+    def launches(fn, *args):
+        before = ms_ops.LAUNCHES
+        return fn(*args), ms_ops.LAUNCHES - before
+
+    def counted_prefill(tokens, bucket):
+        calls.append(len(tokens))
+        out, n = launches(prefill, tokens, bucket)
+        check(n_ssm is None or n == n_ssm,
+              f"prefill: {n} K3 launches, want {n_ssm}")
+        return out
+
+    def counted_step(*args):
+        out, n = launches(step, *args)
+        check(n == 0, f"decode step: {n} K3 launches, want 0")
+        return out
+
+    backend.prefill = counted_prefill
+    if n_ssm is not None:
+        backend.step = counted_step
+    return backend
+
+
+def token_mismatches(reqs, want, label: str) -> list:
+    """Every request finished with max_new tokens and no error (checked
+    here); returns a line for each request whose tokens are not the
+    ones it got alone (12a), naming the first step that differs."""
+    out = []
+    for r, w in zip(reqs, want):
+        err = getattr(r, "error", None)
+        check(r.done and err is None, f"{label}: request {r.uid} ended with "
+              f"{err!r}")
+        check(r.output is not None and len(r.output) == r.max_new,
+              f"{label}: request {r.uid} output {r.output!r}")
+        diff = [i for i, (a, b) in enumerate(zip(r.output, w)) if a != b]
+        if diff:
+            out.append(f"{label}: request {r.uid} (prompt {len(r.tokens)}) "
+                       f"differs from its solo tokens from step {diff[0]}: "
+                       f"{r.output.tolist()} vs {list(w)}")
+    return out
+
+
+def serve_latency(reqs, wall_s: float) -> dict:
+    """Wall, req/s, time to first token (t_first_token - t_submit) p50
+    and p99, time per output token (t_done - t_first_token over the
+    tokens after the first) p50."""
+    import numpy as np
+    ttft = np.array([r.t_first_token - r.t_submit for r in reqs])
+    tpot = np.array([(r.t_done - r.t_first_token) / (len(r.output) - 1)
+                     for r in reqs])
+    return {"wall_s": wall_s, "req_per_s": len(reqs) / wall_s,
+            "ttft_ms_p50": 1e3 * float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": 1e3 * float(np.percentile(ttft, 99)),
+            "tpot_ms_p50": 1e3 * float(np.percentile(tpot, 50))}
+
+
+def _latency_line(rec: dict) -> str:
+    return (f"wall {rec['wall_s']:.3f} s, {rec['req_per_s']:.3f} req/s, "
+            f"TTFT p50 {rec['ttft_ms_p50']:.3f} ms p99 "
+            f"{rec['ttft_ms_p99']:.3f} ms, TPOT p50 {rec['tpot_ms_p50']:.3f} "
+            f"ms, {rec['decode_steps']} decode steps, K3 "
+            f"{rec['k3_launches']} launches ({rec['prefills']} prefills)")
+
+
+def engine_run(torch, dev, cfg, params, prompts, n_ssm: int, *,
+               solo: bool, slots: int = ENGINE_SLOTS) -> tuple:
+    """The prompts through one engine of `slots` slots, each alone
+    (submitted after the previous one drained) or all at once.  Returns
+    (requests, record, engine)."""
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.serve import ModelBackend, Request, ServeEngine
+    calls = []
+    engine = ServeEngine(cfg, backend=counted_backend(
+        ModelBackend(cfg, params, device=dev), calls, n_ssm),
+        slots=slots, max_seq=ENGINE_MAX_SEQ, prompt_bucket=ENGINE_BUCKET)
+    reqs = [Request(uid=i, tokens=p, max_new=ENGINE_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    before = ms_ops.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+        if solo:
+            engine.run_until_drained(timeout_s=600)
+    engine.run_until_drained(timeout_s=600)
+    torch.cuda.synchronize()
+    rec = serve_latency(reqs, time.perf_counter() - t0) | {
+        "decode_steps": engine.steps, "prefills": len(calls),
+        "k3_launches": ms_ops.LAUNCHES - before}
+    check(rec["k3_launches"] == n_ssm * len(prompts) == n_ssm * len(calls),
+          f"12: {rec['k3_launches']} K3 launches for {len(calls)} prefills")
+    return reqs, rec, engine
+
+
+def pool_run(torch, dev, cfg, params, prompts, want, n_ssm: int, *,
+             dcn: float, slots: int, kill: str | None = None,
+             **router_kw) -> tuple:
+    """12b/12c: ``Session.serve_pool`` over pilots d0, d1, pf aliased on
+    the one card, decode engines on pf and d1, prefill as Raptor
+    micro-tasks on pf, pages sized by kv_cache_rates(cfg), one params
+    tree.  With `kill`, that decode pilot is recovered through the
+    ControlPlane after two of its decode steps.  Returns (record,
+    requests)."""
+    from repro_torch.core import (PilotDescription, ResourceManager, Session,
+                                  TransferCostModel)
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.serve import ModelBackend, Request
+    session = Session(ResourceManager(devices=[dev] * 3),
+                      cost_model=TransferCostModel(dcn_cost_per_byte=dcn))
+    calls, backends = [], []
+
+    def factory():
+        backends.append(counted_backend(ModelBackend(cfg, params, device=dev),
+                                        calls))
+        return backends[-1]
+
+    try:
+        for name in ("d0", "d1", "pf"):
+            session.add_pilot(PilotDescription(n_chips=1, name=name,
+                                               enable_speculation=False))
+        if kill:
+            session.enable_fault_tolerance(heartbeat_timeout_s=60.0)
+        router = session.serve_pool(
+            factory, slots=slots, max_seq=ENGINE_MAX_SEQ,
+            prompt_bucket=ENGINE_BUCKET, decode_pilots=["pf", "d1"],
+            prefill_pilot="pf", cfg=cfg, **router_kw)
+        check(all(b.params is params for b in backends),
+              "a backend copied the weights")
+        engines = [h.engine for h in router.handles]
+        victim = taken = None
+        if kill:
+            victim = session.pilots[kill]
+            (handle,) = [h for h in router.handles if h.pilot == victim.uid]
+            taken = hold_after(handle, 2)
+        reqs = [Request(uid=i, tokens=p, max_new=ENGINE_MAX_NEW)
+                for i, p in enumerate(prompts)]
+        before = ms_ops.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in reqs:
+            router.submit(r)
+        recovered = None
+        if kill:
+            deadline = time.monotonic() + 300
+            while len(taken) < 2 and time.monotonic() < deadline:
+                time.sleep(1e-3)
+            check(handle.engine.n_active > 0,
+                  f"12c: no request is decoding on {kill}")
+            ev = session.control_plane.recover_pilot(victim,
+                                                     reason="chip-smoke")
+            check(not session.control_plane.errors,
+                  f"12c: recovery errors {session.control_plane.errors}")
+            recovered = ev.serve_requests_recovered
+            check(recovered >= 1, f"12c: {recovered} requests recovered")
+        router.drain(timeout_s=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = router.snapshot()
+        ledger = session.dataplane.ledger()
+    finally:
+        session.shutdown()
+    rec = serve_latency(reqs, wall) | {
+        "mismatches": token_mismatches(
+            reqs, want, f"12 dcn {dcn:.0e}{f' kill {kill}' if kill else ''}"),
+        "dcn_cost_per_byte": dcn, "slots": slots,
+        "decode_steps": sum(e.steps for e in engines),
+        "prefills": len(calls), "k3_launches": ms_ops.LAUNCHES - before,
+        "cross_pilot": snap["cross_pilot"],
+        "splice_bytes": snap["splice_bytes"],
+        "local_splices": snap["kv"]["local_splices"],
+        "ledger_kv_splice": ledger["by_reason"].get("kv-splice", 0),
+        "admitted": [e.admitted for e in engines],
+        "recovered_requests": recovered}
+    check(rec["k3_launches"] == n_ssm * len(calls),
+          f"12: {rec['k3_launches']} K3 launches for {len(calls)} prefills")
+    check(snap["prefill_offloaded"] == len(prompts),
+          f"12: {snap['prefill_offloaded']} prefills offloaded")
+    return rec, reqs
+
+
+def hold_after(handle, n_steps: int) -> list:
+    """Let `handle`'s engine take `n_steps` decode steps, then hold its
+    next step until the engine is told to stop (its pilot is being
+    recovered): the kill lands while its requests are mid-flight."""
+    backend = handle.engine.backend
+    step, taken = backend.step, []
+
+    def held(*args):
+        if len(taken) >= n_steps:
+            handle.stop_event.wait(300)
+        taken.append(1)
+        return step(*args)
+
+    backend.step = held
+    return taken
+
+
+def phase_engine(torch, dev) -> dict:
+    """12. The serving engine at ENGINE_ARCH's full width and depth in its
+    own dtype: (a) one engine, each request alone and then all at once,
+    token for token equal; (b) ``Session.serve_pool`` at the reference
+    test's two DCN settings; (c) a decode pilot recovered mid-flight.
+
+    A request's tokens are held against the same request alone in an
+    engine of the same slot count: a decode step's rounding depends on
+    its batch's row count (``tools/decode_rows.py``), so the 1-slot pool
+    of 12b is held against each request alone in a 1-slot engine, and
+    how far it is from 12a's 4-slot tokens is printed."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import kv_cache_rates
+    cfg = configs.get(ENGINE_ARCH)
+    n_ssm = sum(s.n_layers for s in tf.build_segments(cfg) if s.ssm)
+    gen = torch.Generator(device=dev).manual_seed(ENGINE_SEED)
+    params = tf.init_params(cfg, gen, device=dev)
+    prompts = engine_prompts(cfg.vocab_size)
+    print(f"phase 12: serving engine, {ENGINE_ARCH} ({cfg.n_layers} layers, "
+          f"{cfg.dtype}), {len(prompts)} prompts of "
+          f"{sorted(len(p) for p in prompts)} tokens, max_new "
+          f"{ENGINE_MAX_NEW}, bucket {ENGINE_BUCKET}, max_seq "
+          f"{ENGINE_MAX_SEQ}; kv_cache_rates {kv_cache_rates(cfg)}")
+    out = {"arch": ENGINE_ARCH, "prompt_lens": [len(p) for p in prompts],
+           "max_new": ENGINE_MAX_NEW}
+    solo, out["12a solo"], _ = engine_run(torch, dev, cfg, params, prompts,
+                                          n_ssm, solo=True)
+    want = [r.output for r in solo]
+    batched, out["12a batched"], engine = engine_run(
+        torch, dev, cfg, params, prompts, n_ssm, solo=False)
+    problems = token_mismatches(batched, want, "12a batched")
+    check(engine.steps < sum(r.max_new for r in batched),
+          f"12a: {engine.steps} decode steps, not under "
+          f"{sum(r.max_new for r in batched)}")
+    prof = _device_profile(torch, lambda: engine.backend.step(
+        engine.state, engine.pos, engine.start))
+    out["12a batched"]["decode_step_profile"] = prof
+    # one slot: the requests one at a time, each decoded in a 1-row batch
+    one, out["12b solo, 1 slot"], _ = engine_run(
+        torch, dev, cfg, params, prompts, n_ssm, solo=False, slots=1)
+    want_1 = [r.output for r in one]
+    out["1 slot vs 4 slots"] = token_mismatches(one, want, "1 slot alone")
+    for key in ("12a solo", "12a batched", "12b solo, 1 slot"):
+        print(f"  {key}: {_latency_line(out[key])}")
+    print(f"  12a: K3 {n_ssm} launches a prefill, 0 a decode step; one "
+          f"profiled decode step of {ENGINE_SLOTS} rows: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f}"
+          f" ms ({_share(prof['busy_share'])}), {prof['kernel_launches']} "
+          "device kernels")
+    print(f"  alone at 1 slot vs alone at {ENGINE_SLOTS} slots: "
+          f"{len(out['1 slot vs 4 slots'])} of {len(prompts)} requests differ")
+    for line in out["1 slot vs 4 slots"]:
+        print(f"    {line}")
+    b1, reqs_b1 = pool_run(torch, dev, cfg, params, prompts, want, n_ssm,
+                           dcn=1e-3, slots=ENGINE_SLOTS)
+    check(b1["cross_pilot"] == 0 and b1["local_splices"] == len(prompts)
+          and b1["ledger_kv_splice"] == 0,
+          f"12b at DCN 1e-3: {b1}")
+    b2, _ = pool_run(torch, dev, cfg, params, prompts, want_1, n_ssm,
+                     dcn=1e-15, slots=1, load_weight=4.0)
+    check(b2["cross_pilot"] > 0
+          and b2["ledger_kv_splice"] == b2["splice_bytes"] > 0,
+          f"12b at DCN 1e-15: {b2}")
+    c, _ = pool_run(torch, dev, cfg, params, prompts, want, n_ssm, dcn=1e-15,
+                    slots=ENGINE_SLOTS, kill="d1", load_weight=4.0)
+    out["12b dcn 1e-3"], out["12b dcn 1e-15"], out["12c recovery"] = b1, b2, c
+    for key in ("12b dcn 1e-3", "12b dcn 1e-15", "12c recovery"):
+        rec = out[key]
+        print(f"  {key} ({rec['slots']} slots an engine): "
+              f"{_latency_line(rec)}; {rec['cross_pilot']} "
+              f"cross-pilot splices, {rec['splice_bytes']} B (ledger "
+              f"kv-splice {rec['ledger_kv_splice']} B), {rec['local_splices']}"
+              f" local; admitted {rec['admitted']}"
+              + (f"; {rec['recovered_requests']} requests recovered"
+                 if rec["recovered_requests"] is not None else ""))
+        problems += rec["mismatches"]
+    for line in problems:
+        print(f"  MISMATCH {line}")
+    check(not problems, f"phase 12: {len(problems)} requests differ from "
+          "their solo tokens")
+    print("  12a-12c: every request got the tokens it gets alone in an "
+          "engine of its slot count")
+    return out
+
+
 def fig8_stages(km, n: int, k: int, seed: int, runs: dict | None = None,
                 pin: str | None = None):
     """The paper's Fig-8 DAG: ``simulate`` draws n points on its pilot's
@@ -1733,6 +2060,12 @@ def run(torch) -> int:
         f"phase 11b launched K3 {model_launches} times")
     print(f"  phase 11b: K3 launched {model_launches} times")
     sublayers = hymba_sublayers(torch, dev, *SERVE_MODELS[0][1:3])
+    torch.cuda.empty_cache()                   # phase 11's weights are gone
+    ms_ops.LAUNCHES = 0                        # phase 12's window
+    engine = phase_engine(torch, dev)
+    engine_launches = ms_ops.LAUNCHES
+    check(engine_launches > 0, "phase 12 launched no K3")
+    print(f"  phase 12: K3 launched {engine_launches} times")
     t_bytes = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S
     t_ops = sum(s["flops"] for s in shapes) / FP32_FLOP_PER_S
     record = {"kernels": [{
@@ -1773,7 +2106,8 @@ def run(torch) -> int:
             e for k, e in model_errs.items()
             if k.endswith("K3 at serving shape"))), scan_rows,
         library=False) | {
-        "launches_model": model_launches}],
+        "launches_model": model_launches,
+        "launches_engine": engine_launches}],
         "main_path_wall_ms": {f"{n}/{p}": 1e3 * t
                               for (n, p), t in walls.items()},
         "autotune": {fam: {k: rec[k] for k in (
@@ -1783,7 +2117,7 @@ def run(torch) -> int:
         "profile": breakdown, "session": session_rows, "raptor": raptor,
         "recovery": recovery, "phases_8_10_s": phases_s, "build_s": build_s,
         "model_parity_max_abs_err": model_errs, "serving": serving,
-        "hymba_sublayer_ms": sublayers}
+        "hymba_sublayer_ms": sublayers, "serving_engine": engine}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,9 @@ YARN-style slot scheduler — with data locality, gang scheduling,
 two-phase admission with AppMaster reuse, straggler speculation and
 elastic resize.  Raptor overlays run micro-tasks inside a pilot without
 per-task admission, and the ``FailureInjector`` kills chips, agents and
-pilots so that recovery can be measured.
-
-Not ported yet: ``Session.serve_pool`` (it builds the serving stack).
+pilots so that recovery can be measured.  ``Session.serve_pool`` builds
+the serving stack (:mod:`repro_torch.serve`) on the Session's pilots;
+it imports it when called, so importing the core loads no model code.
 """
 from .chaos import FailureInjector, KillEvent  # noqa: F401
 from .compute_unit import ComputeUnit, ComputeUnitDescription, CUState  # noqa: F401

@@ -231,8 +231,7 @@ class Session:
         self._engines: Dict[str, Any] = {}          # pilot uid -> engine
         self._tenants: Dict[str, TenantContext] = {}
         self._overlays: Dict[str, Any] = {}         # pilot uid -> RaptorMaster
-        self._routers: List[Any] = []               # serve routers (none
-        #                                             until serving lands)
+        self._routers: List[Any] = []               # serve_pool routers
         self._pre_staged: Dict[str, Tuple] = {}     # stage -> (pilot, dec, reqs)
         self._lock = threading.Lock()
         self._move_lock = threading.Lock()          # serializes input moves
@@ -343,6 +342,82 @@ class Session:
         master = self._overlay_for(pilot, n_workers)
         tasks = master.map(fn, items, tenant=tenant, queue=queue, tag=tag)
         return [t.wait(timeout) for t in tasks]
+
+    # -------------------------------------------------------------- serving
+    def serve_pool(self, backend_factory: Callable[[], Any], *,
+                   n_engines: int = 2, slots: int = 4, max_seq: int = 256,
+                   prompt_bucket: int = 32,
+                   decode_pilots: Optional[Sequence[str]] = None,
+                   prefill_pilot: Optional[str] = None,
+                   prefill_workers: Optional[int] = None,
+                   offload_prefill: bool = True,
+                   queue_configs: Optional[Sequence] = None,
+                   page_tokens: int = 16,
+                   bytes_per_token: Optional[int] = None,
+                   kv_itemsize: int = 2, cfg=None,
+                   compress: Optional[str] = None, **router_kw):
+        """Disaggregated serving on this session's pilots.
+
+        Decode engines (long-lived batch loops — the serving analogue of
+        a long-running AM) land one per pilot in ``decode_pilots``, else
+        on the freest pilots; prefill runs as Raptor micro-tasks on
+        ``prefill_pilot`` (default: the freest non-decode pilot — the
+        compute-heavy side of the split).  Every request's KV-cache is
+        paged on the shared DataPlane and the returned
+        :class:`~repro_torch.serve.router.ServeRouter` dispatches by
+        ``locality − movement_cost − load`` over that residency, with
+        per-tenant DRF budgets (``queue_configs``) binding across ALL
+        engines through one QueueTree."""
+        from .queues import QueueTree
+        from ..serve.engine import ServeEngine
+        from ..serve.kv_pages import KVPageManager
+        from ..serve.router import DrfAdmission, EngineHandle, ServeRouter
+
+        if decode_pilots is not None:
+            decos = [self.pilots[n] for n in decode_pilots]
+            n_engines = len(decos)
+        else:
+            ranked = sorted(self.pilots.values(), reverse=True,
+                            key=lambda p: p.agent.scheduler.n_free)
+            if not ranked:
+                raise RuntimeError("session has no pilots for a serve pool")
+            decos = [ranked[i % len(ranked)] for i in range(n_engines)]
+
+        kv = KVPageManager(self.dataplane, page_tokens=page_tokens,
+                           bytes_per_token=bytes_per_token,
+                           itemsize=kv_itemsize, cfg=cfg, compress=compress)
+        tree = QueueTree(queue_configs)
+        admission = DrfAdmission(
+            tree, slots_total=n_engines * slots,
+            kv_bytes_total=n_engines * slots * kv.bytes_for_tokens(max_seq))
+
+        handles = []
+        for i, pilot in enumerate(decos):
+            engine = ServeEngine(
+                cfg, backend=backend_factory(), slots=slots,
+                max_seq=max_seq, prompt_bucket=prompt_bucket,
+                admission=admission,
+                name=f"decode{i}@{pilot.desc.name}")
+            pilot.agent.register_serve(engine)
+            handles.append(EngineHandle(engine, pilot.uid))
+
+        if prefill_pilot is not None:
+            ppilot = self.pilots[prefill_pilot]
+        else:
+            outside = [p for p in self.pilots.values() if p not in decos]
+            ppilot = max(outside or list(self.pilots.values()),
+                         key=lambda p: p.agent.scheduler.n_free)
+        overlay = (self._overlay_for(ppilot.desc.name, prefill_workers)
+                   if offload_prefill else None)
+        prefill_backend = backend_factory()
+        router = ServeRouter(
+            handles, kv, self.cost_model,
+            prefill_fn=prefill_backend.prefill, prefill_pilot=ppilot.uid,
+            bucket=prompt_bucket, overlay=overlay, **router_kw)
+        router.admission = admission        # bench/test observability
+        with self._lock:
+            self._routers.append(router)
+        return router
 
     # -------------------------------------------------------------- placer
     def _compatible(self, stage: Stage) -> List[Pilot]:

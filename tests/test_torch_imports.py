@@ -32,7 +32,9 @@ def test_scan_covers_the_port():
     assert {"core/session.py", "core/raptor.py", "core/chaos.py",
             "roofline/placement.py", "roofline/terms.py"} <= rel
     assert {"models/config.py", "models/transformer.py", "util.py",
-            "data/batches.py", "serve/step.py", "configs/__init__.py"} \
+            "data/batches.py", "serve/step.py", "configs/__init__.py",
+            "serve/engine.py", "serve/kv_pages.py", "serve/router.py",
+            "launch/serve.py"} \
         | {f"models/layers/{m}.py"
            for m in ("common", "attention", "mamba", "moe")} <= rel
     configs = {p.name for p in (ROOT / "src" / "repro" / "configs").glob(
@@ -53,7 +55,8 @@ def test_no_jax_or_reference_imports(path):
                                     "repro_torch.roofline",
                                     "repro_torch.models.transformer",
                                     "repro_torch.data.batches",
-                                    "repro_torch.serve"])
+                                    "repro_torch.serve",
+                                    "repro_torch.launch.serve"])
 def test_each_entry_module_imports_first(module):
     """No import cycle: each module imports on its own in a fresh
     interpreter (the Session imports ``convert``, which needs the
