@@ -71,12 +71,30 @@ Phases (any failure raises and the script exits non-zero):
      in an engine of 1 slot; (c) decode pilot d1 recovered through the
      ControlPlane mid-flight, its requests served on pf.  Every request
      must end with max_new tokens and no error; wall, req/s, time to
-     first token and per output token are printed for each run.
+     first token and per output token are printed for each run;
+ 13. training (``optim/``, ``train/``, ``data/pipeline.py``,
+     ``checkpoint/``, ``launch/train.py``) with K3's backward (K3-bwd):
+     (a) K3-bwd and K3 forward against their plain versions at K3's
+     shapes plus the training (4 x 2048) and hybrid (2 x 512) shapes at
+     Hymba-1.5B width, K3-bwd twice (bitwise equal), timed beside its
+     bound, its plain version and K3 forward; (b) a full-width f32 Hymba-1.5B Mamba
+     layer's gradients on the card against the CPU; (c) Hymba-1.5B at
+     full width and depth trains 8 steps of 8 x 2048 in 2 microbatches
+     through ``launch.train`` (a gang CU on a Pilot): finite, falling
+     loss, K3 128 and K3-bwd 64 launches a step, one profiled step, a
+     blocking save of the whole state and a restore into a fresh Trainer
+     (bitwise), and resume exactness at 4 layers (rel 1e-3); (d) the
+     paper's simulate -> analyze -> train DAG
+     (``examples/torch_hybrid_pipeline.py``) at Hymba-1.5B width on
+     pilots ``hpc`` and ``ana``, K1 in every analyze, ending "pipeline
+     complete.".
 
 Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
 it and reads them after.  Phase 11b sets K3's count to 0 before it and
 reads it after (``launches_model``), and so does phase 12
-(``launches_engine``).
+(``launches_engine``).  Phases 13c and 13d set K3's and K3-bwd's counts
+to 0 before them and read them after (``launches_train``,
+``launches_hybrid``; K3-bwd's ``launches`` is 13c's).
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -189,6 +207,40 @@ ENGINE_BUCKET = 1024
 ENGINE_MAX_SEQ = 4608
 ENGINE_SLOTS = 4
 ENGINE_SEED = 17
+# phase 13: K3-bwd (label, B, S, di, st, bf16, timed) at the reference's
+# K3 test shapes, Hymba-1.5B's training shape (B 4 = one of two
+# microbatches of 8 x 2048), the hybrid pipeline's (2 x 512, phase 13d),
+# Falcon-Mamba-7B's width, an odd shape (st 32, S not a multiple of the
+# kernel's 16-step chunk) and bf16.  K3 forward is held at each of these
+# shapes too (SCAN_TOL, on y and h_last).  f32 at K3's
+# tolerance; bf16 outputs are rounded to bf16 (8 mantissa bits) after f32
+# sums in another order, so bf16 is held at the reference's bf16
+# tolerance (tests/test_kernels.py, K1's bf16 case)
+BWD_CASES = [
+    ("test 1x32x8x4", 1, 32, 8, 4, False, False),
+    ("test 2x64x16x8", 2, 64, 16, 8, False, False),
+    ("test 1x128x32x16", 1, 128, 32, 16, False, False),
+    ("st=2 3x40x16x2", 3, 40, 16, 2, False, False),
+    ("odd 1x37x5x32", 1, 37, 5, 32, False, False),
+    ("bf16 2x256x64x16", 2, 256, 64, 16, True, False),
+    ("hymba-1.5b train", 4, 2048, 3200, 16, False, True),
+    ("hymba-1.5b hybrid", 2, 512, 3200, 16, False, False),
+    ("falcon-mamba-7b", 1, 2048, 8192, 16, False, True),
+]
+BWD_TOL, BWD_BF16_TOL = 1e-4, 2e-2
+# 13b: a full-width f32 Mamba layer's gradients, card vs CPU, per leaf
+# max |err| <= GRAD_TOL * max |want| (sums over 512 steps and 3200 rows
+# in other orders)
+GRAD_TOL = 1e-3
+# 13c: Hymba-1.5B at full width and depth, bf16 params, f32 moments,
+# remat; global batch 8 x 2048 in 2 microbatches, lr 1e-3, warmup 2 of 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES = 8, 2048, 2
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 2, 1e-3
+# resume exactness at full width cut to 4 layers: 8 steps, a checkpoint
+# every 4, the reference's test_checkpoint_restart_resumes_exactly rel
+RESUME_LAYERS, RESUME_STEPS, RESUME_BATCH, RESUME_TOL = 4, 8, 2, 1e-3
+# 13d: the hybrid pipeline at Hymba-1.5B full width
+HYBRID_BATCH, HYBRID_SEQ, HYBRID_ROUNDS, HYBRID_STEPS = 2, 512, 3, 2
 # phase 8's DCN costs per byte (benchmarks/bench_session_placement.py)
 SESSION_DCN_COSTS = (0.0, 1e-9, 1e-7, 1e-5, 1e-3, 1.0)
 SESSION_SEED = 80      # simulate's seed is this plus the scenario's index
@@ -907,7 +959,8 @@ def phase_model_parity(torch, dev) -> dict:
 
 def _device_profile(torch, fn) -> dict:
     """`fn` once under torch.profiler: device busy time (self device time
-    of every kernel; one stream, so they do not overlap) and K3's part."""
+    of every kernel; one stream, so they do not overlap), K3's part and
+    K3-bwd's (its two kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -924,9 +977,13 @@ def _device_profile(torch, fn) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kernels) / 1e3
-    k3 = sum(dev_us(e) for e in kernels if "mamba_scan" in e.key) / 1e3
+    k3 = sum(dev_us(e) for e in kernels if "mamba_scan_kernel" in e.key) / 1e3
+    k3_bwd = sum(dev_us(e) for e in kernels if "mamba_scan_bwd_kernel"
+                 in e.key or "mamba_scan_dc_kernel" in e.key) / 1e3
     return {"wall_ms": wall, "device_busy_ms": busy, "k3_device_ms": k3,
             "k3_share": k3 / busy if busy else None,
+            "k3_bwd_device_ms": k3_bwd,
+            "k3_bwd_share": k3_bwd / busy if busy else None,
             "busy_share": busy / wall if busy else None,
             "kernels": len(kernels),
             "kernel_launches": sum(e.count for e in kernels),
@@ -1827,6 +1884,361 @@ def phase_assign(torch, dev, km, km_kernel, ops, ref, blocks: dict,
     return max_err, shapes, merge_err, merge_rows
 
 
+# ------------------------------------------------ 13. training on the card
+def scan_bwd_bound(B: int, S: int, di: int, st: int, es: int) -> dict:
+    """K3-bwd's least time: a, b, C, h0 read once (es bytes each), dy and
+    dh_last (f32) read once, da, db, dC, dh0 written once (es bytes); per
+    element of a, 8 FLOPs (the h rebuild's FMA, g's FMA, da, the carry,
+    and dC's multiply-add)."""
+    big, c, h = B * S * di * st, B * S * st, B * di * st
+    nbytes = es * (2 * big + c + h) + 4 * (B * S * di + h) \
+        + es * (2 * big + c + h)
+    return bound_of(nbytes, 8 * big)
+
+
+def phase_scan_bwd(torch, dev):
+    """13a. K3-bwd against its plain version (``ref.scan_backward``) at
+    BWD_CASES, run twice (bitwise equal), timed beside its bound, its
+    plain version and K3 forward at the same shape.  K3 forward is held
+    against ``ref.scan`` on the same inputs, so both kernels of the
+    training and hybrid paths are held at those paths' own shapes.
+    Returns (K3-bwd's max |err|, K3 forward's max |err|, timed rows)."""
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+    print("phase 13a: mamba_scan backward (K3-bwd) against its plain version")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    max_err, fwd_err, rows = 0.0, 0.0, []
+    names = ("da", "db", "dC", "dh0")
+    for label, B, S, di, st, bf16, timed in BWD_CASES:
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        tol = BWD_BF16_TOL if bf16 else BWD_TOL
+        args = scan_inputs(torch, gen, dev, B, S, di, st, dtype) + (
+            randn(torch, gen, dev, B, S, di),
+            randn(torch, gen, dev, B, di, st))
+        got = ms_ops.scan_backward(*args)
+        again = ms_ops.scan_backward(*args)
+        want = ms_ref.scan_backward(*args)
+        torch.cuda.synchronize()
+        check(all(g.dtype == dtype for g in got), f"{label}: output dtypes "
+              f"{[g.dtype for g in got]}, want {dtype}")
+        check(all(torch.equal(g, h) for g, h in zip(got, again)),
+              f"{label}: two runs on the same inputs differ")
+        err = max(held(torch, g, w, tol, f"{label} {n}")
+                  for g, w, n in zip(got, want, names))
+        max_err = max(max_err, err)
+        y, h = ms_ops.scan(*args[:4])
+        yr, hr = ms_ref.scan(*args[:4])
+        f_err = max(held(torch, y, yr, SCAN_TOL, f"{label} K3 y"),
+                    held(torch, h, hr, SCAN_TOL, f"{label} K3 h_last"))
+        fwd_err = max(fwd_err, f_err)
+        del y, h, yr, hr
+        line = (f"  {label} {dtype}: max |err| {err:.3e} (tol {tol}), "
+                f"bitwise equal over two runs; K3 forward max |err| "
+                f"{f_err:.3e} (tol {SCAN_TOL})")
+        if timed:
+            # kernel, plain, kernel: in turns on one card
+            t_k = cuda_ms(torch, lambda: ms_ops.scan_backward(*args))
+            t_p = cuda_ms(torch, lambda: ms_ref.scan_backward(*args), 1)
+            t_k = min(t_k, cuda_ms(torch, lambda: ms_ops.scan_backward(*args)))
+            t_f = cuda_ms(torch, lambda: ms_ops.scan(*args[:4]))
+            bound = scan_bwd_bound(B, S, di, st, args[0].element_size())
+            rows.append({"shape": label, "B": B, "S": S, "di": di, "st": st,
+                         "dtype": str(dtype), "ms": t_k, "plain_ms": t_p,
+                         "forward_ms": t_f, "library_ms": None, **bound})
+            line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, K3 "
+                     f"forward {t_f:.4f} ms, bound {bound['bound_ms']:.4f} "
+                     f"ms ({bound['bound_by']}), "
+                     f"{bound['bytes'] / t_k / 1e9:.3f} TB/s")
+        print(line)
+        del args, got, again, want
+    return max_err, fwd_err, rows
+
+
+def _mamba_layer_grads(torch, dev, gen) -> float:
+    """13b. One Hymba-1.5B Mamba layer at full width in f32, B 1 x S 512:
+    every parameter's (and the input's) gradient for a fixed random
+    cotangent, on the card (K3 + K3-bwd) against the same layer on the
+    CPU (the plain scan and its plain backward), per leaf max |err| <=
+    GRAD_TOL * max |want|."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models.layers import mamba
+    cfg = dataclasses.replace(configs.get("hymba-1.5b"), dtype="float32")
+    p = mamba.init_mamba(cfg, gen)
+    x = randn(torch, gen, dev, 1, LAYER_S, cfg.d_model)
+    cot = randn(torch, gen, dev, 1, LAYER_S, cfg.d_model)
+
+    def grads(p, x, cot):
+        names = sorted(p)
+        leaves = [p[k].detach().requires_grad_(True) for k in names]
+        xs = x.detach().requires_grad_(True)
+        out, _ = mamba.mamba_forward(cfg, dict(zip(names, leaves)), xs)
+        gs = torch.autograd.grad((out * cot).sum(), leaves + [xs])
+        return out, dict(zip(names + ["x"], gs))
+
+    k3, bwd = ms_ops.LAUNCHES, ms_ops.BWD_LAUNCHES
+    out, got = grads(p, x, cot)
+    torch.cuda.synchronize()
+    check(out.grad_fn is not None, "Mamba layer output has no grad_fn on "
+          "the card")
+    check((ms_ops.LAUNCHES - k3, ms_ops.BWD_LAUNCHES - bwd) == (1, 1),
+          f"Mamba layer gradient: {ms_ops.LAUNCHES - k3} K3 and "
+          f"{ms_ops.BWD_LAUNCHES - bwd} K3-bwd launches, want 1 and 1")
+    _, want = grads({k: v.cpu() for k, v in p.items()}, x.cpu(), cot.cpu())
+    worst = 0.0
+    for name, w in want.items():
+        err = (got[name].cpu() - w).abs().max().item()
+        scale = w.abs().max().item()
+        check(err <= GRAD_TOL * scale, f"Mamba layer grad {name}: max |err| "
+              f"{err:.3e} over {GRAD_TOL} x max |want| {scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+    print(f"  phase 13b: Hymba-1.5B Mamba layer (B 1, S {LAYER_S}, f32): "
+          f"{len(want)} gradients, card (K3 + K3-bwd) vs CPU (plain) worst "
+          f"max |err| / max |want| {worst:.3e} (tol {GRAD_TOL}); output "
+          "grad_fn set")
+    return worst
+
+
+def _state_nbytes(state) -> int:
+    from repro_torch.util import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state))
+
+
+def _states_equal(torch, a, b) -> bool:
+    """Same tree, and every leaf the same dtype, shape and bits."""
+    from repro_torch.util import tree_paths
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+    def bits(t):
+        return t.contiguous().view(ints[t.element_size()])
+
+    pa, pb = list(tree_paths(a)), list(tree_paths(b))
+    return [k for k, _ in pa] == [k for k, _ in pb] and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(bits(x), bits(y))
+        for (_, x), (_, y) in zip(pa, pb))
+
+
+def _checkpoint_roundtrip(torch, dev, cfg, trainer, card: str) -> dict:
+    """One blocking save of the whole train state and one restore into a
+    fresh Trainer, each timed; the restored state equal bit for bit."""
+    import shutil
+    from repro_torch.core import DeviceGrid
+    from repro_torch.train.trainer import Trainer
+    nbytes = _state_nbytes(trainer.state)
+    ckpt_root = ROOT / "build" / "phase13-ckpt"
+    ckpt_root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(ckpt_root).free
+    print(f"  checkpoint: state {nbytes / 1e9:.3f} GB, free disk "
+          f"{free / 1e9:.1f} GB at {ckpt_root}")
+    check(free > 1.2 * nbytes, f"not enough disk for a {nbytes / 1e9:.1f} "
+          f"GB checkpoint: {free / 1e9:.1f} GB free")
+    try:
+        fresh = Trainer(cfg, DeviceGrid([dev]), global_batch=TRAIN_BATCH,
+                        seq=TRAIN_SEQ, ckpt_dir=str(ckpt_root))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.ckpt.save(trainer.state, int(trainer.state["step"]),
+                        blocking=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step = fresh.restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(step == int(trainer.state["step"]), f"restored step {step}")
+        check(_states_equal(torch, trainer.state, fresh.state),
+              "restored train state differs from the saved one")
+        del fresh
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    print(f"  checkpoint save (blocking) {save_s:.3f} s, restore into a "
+          f"fresh Trainer {restore_s:.3f} s, {nbytes / 1e9:.3f} GB, "
+          f"bitwise equal [{card}]")
+    return {"state_gb": nbytes / 1e9, "save_s": save_s,
+            "restore_s": restore_s, "free_disk_gb": free / 1e9}
+
+
+def _resume_exactness(torch, dev) -> dict:
+    """Hymba-1.5B at full width cut to RESUME_LAYERS layers: RESUME_STEPS
+    steps with a checkpoint every half, then a fresh Trainer restores the
+    half-way checkpoint and runs the second half; its losses within rel
+    RESUME_TOL of the uninterrupted run's."""
+    import dataclasses
+    import shutil
+    from repro_torch import configs
+    from repro_torch.core import DeviceGrid
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import abstract_train_state
+    from repro_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(configs.get("hymba-1.5b"),
+                              n_layers=RESUME_LAYERS,
+                              full_attn_layers=(0, RESUME_LAYERS - 1))
+    half = RESUME_STEPS // 2
+    ckpt_dir = ROOT / "build" / "phase13-resume"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def make():
+        return Trainer(cfg, DeviceGrid([dev]), global_batch=RESUME_BATCH,
+                       seq=TRAIN_SEQ, hyper=adamw.Hyper(lr=TRAIN_LR),
+                       n_microbatches=TRAIN_MICROBATCHES,
+                       ckpt_dir=str(ckpt_dir), ckpt_every=half,
+                       warmup_steps=TRAIN_WARMUP, total_steps=RESUME_STEPS)
+
+    try:
+        a = make()
+        full = [h["loss"] for h in a.run(RESUME_STEPS, log_every=0)]
+        state_gb = _state_nbytes(a.state) / 1e9
+        del a
+        b = make()
+        b.state = b.ckpt.restore(abstract_train_state(cfg), step=half,
+                                 device=dev)
+        check(int(b.state["step"]) == half, "resume: wrong checkpoint step")
+        resumed = [h["loss"] for h in b.run(RESUME_STEPS, log_every=0)]
+        del b
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(len(resumed) == RESUME_STEPS - half, f"resume ran {len(resumed)} "
+          "steps")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(resumed, full[half:]))
+    check(rel <= RESUME_TOL, f"resumed losses {resumed} vs uninterrupted "
+          f"{full[half:]}: rel {rel:.3e} over {RESUME_TOL}")
+    print(f"  resume exactness (Hymba-1.5B width, {RESUME_LAYERS} layers, "
+          f"state {state_gb:.3f} GB, {RESUME_BATCH} x {TRAIN_SEQ}): steps "
+          f"{half}-{RESUME_STEPS - 1} resumed from the step-{half} "
+          f"checkpoint vs uninterrupted: max rel loss diff {rel:.3e} "
+          f"(tol {RESUME_TOL}); losses {[round(x, 6) for x in full]}")
+    return {"layers": RESUME_LAYERS, "state_gb": state_gb,
+            "losses": full, "resumed": resumed, "max_rel_diff": rel}
+
+
+def phase_train(torch, dev, card: str) -> dict:
+    """13c. Hymba-1.5B at full width and depth trains TRAIN_STEPS steps
+    through ``launch/train``'s path (a gang CU on a Pilot): finite and
+    falling loss, K3 and K3-bwd launched exactly 128 and 64 times a step
+    (counts set to 0 just before, read just after), the step time, a
+    profiled step, a checkpoint round trip of the whole state, and resume
+    exactness at 4 layers."""
+    from repro_torch import configs
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as tf
+    cfg = configs.get("hymba-1.5b")
+    n_ssm = sum(s.n_layers for s in tf.build_segments(cfg) if s.ssm)
+    print(f"phase 13c: training {cfg.name} at full width and depth "
+          f"({cfg.n_layers} layers, {cfg.dtype} params, f32 moments, remat) "
+          f"through launch.train: batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
+          f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_STEPS} steps")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms_ops.LAUNCHES = ms_ops.BWD_LAUNCHES = 0   # phase 13c's window
+    out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                microbatches=TRAIN_MICROBATCHES, lr=TRAIN_LR,
+                warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+                log_every=1, device=dev)
+    torch.cuda.synchronize()
+    launches = (ms_ops.LAUNCHES, ms_ops.BWD_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    hist, trainer = out["history"], out["trainer"]
+    per_step = (2 * n_ssm * TRAIN_MICROBATCHES, n_ssm * TRAIN_MICROBATCHES)
+    check(len(hist) == TRAIN_STEPS, f"trained {len(hist)} steps")
+    check(launches == (TRAIN_STEPS * per_step[0], TRAIN_STEPS * per_step[1]),
+          f"phase 13c launched K3 {launches[0]} and K3-bwd {launches[1]} "
+          f"times, want {per_step[0]} and {per_step[1]} a step")
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"non-finite loss or grad_norm: {hist}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    step_ms = 1e3 * statistics.median(h["step_s"] for h in hist[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"  losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}")
+    print(f"  {step_ms:.1f} ms a step (median of steps 1-{TRAIN_STEPS - 1}; "
+          f"step 0 {1e3 * hist[0]['step_s']:.1f} ms), "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB; K3 {per_step[0]} and K3-bwd {per_step[1]} "
+          f"launches a step [{card}]")
+    prof = _device_profile(torch, lambda: trainer.run(
+        TRAIN_STEPS + 1, log_every=0))
+    print(f"  profiled step: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms ({_share(prof['busy_share'])}), "
+          f"K3 {prof['k3_device_ms']:.1f} ms ({_share(prof['k3_share'])}), "
+          f"K3-bwd {prof['k3_bwd_device_ms']:.1f} ms "
+          f"({_share(prof['k3_bwd_share'])}) of device time [{card}]")
+    for key, ms in prof["top_device_ms"]:
+        print(f"      device {ms:9.4f} ms  {key}")
+    ckpt = _checkpoint_roundtrip(torch, dev, cfg, trainer, card)
+    del trainer, out
+    torch.cuda.empty_cache()
+    resume = _resume_exactness(torch, dev)
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "microbatches": TRAIN_MICROBATCHES,
+            "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+            "step_ms": step_ms, "step_ms_all": [1e3 * h["step_s"]
+                                                for h in hist],
+            "tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
+            "k3_launches": launches[0], "k3_bwd_launches": launches[1],
+            "profile": prof, "checkpoint": ckpt, "resume": resume}
+
+
+def phase_hybrid(torch, dev) -> dict:
+    """13d. The paper's simulate -> analyze -> train DAG
+    (``examples/torch_hybrid_pipeline.py``) on the card: a Session over
+    pilots ``hpc`` and ``ana`` on ``[dev] * 2``, Hymba-1.5B at full width
+    training in ``simulate`` (K3, K3-bwd), K-Means with K1 in every
+    ``analyze``."""
+    import importlib.util
+    from repro_torch import configs
+    from repro_torch.kernels.kmeans import ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import transformer as tf
+    spec = importlib.util.spec_from_file_location(
+        "torch_hybrid_pipeline", ROOT / "examples" / "torch_hybrid_pipeline.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = configs.get("hymba-1.5b")
+    n_ssm = sum(s.n_layers for s in tf.build_segments(cfg) if s.ssm)
+    print(f"phase 13d: the hybrid pipeline ({cfg.name} full width, "
+          f"{HYBRID_BATCH} x {HYBRID_SEQ}, {HYBRID_ROUNDS} rounds x "
+          f"{HYBRID_STEPS} steps) on [dev] * 2")
+    k1 = []
+
+    def counted(run):
+        before = ops.LAUNCHES
+        res = run()
+        k1.append(ops.LAUNCHES - before)
+        return res
+
+    ms_ops.LAUNCHES = ms_ops.BWD_LAUNCHES = 0   # phase 13d's window
+    session = example.make_session(dev)
+    t0 = time.perf_counter()
+    try:
+        rounds = example.run_pipeline(
+            session, cfg, rounds=HYBRID_ROUNDS, batch=HYBRID_BATCH,
+            seq=HYBRID_SEQ, steps_per_round=HYBRID_STEPS, on_analyze=counted)
+    finally:
+        session.shutdown()
+    wall = time.perf_counter() - t0
+    launches = (ms_ops.LAUNCHES, ms_ops.BWD_LAUNCHES)
+    # each round: HYBRID_STEPS steps (forward + remat recompute + backward)
+    # and one probe forward without grad
+    want = (HYBRID_ROUNDS * n_ssm * (2 * HYBRID_STEPS + 1),
+            HYBRID_ROUNDS * n_ssm * HYBRID_STEPS)
+    check(launches == want, f"phase 13d: K3 {launches[0]}, K3-bwd "
+          f"{launches[1]} launches, want {want}")
+    check(len(k1) == HYBRID_ROUNDS and all(n > 0 for n in k1),
+          f"phase 13d: K1 launches per analyze {k1}")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["cost"])
+              for r in rounds), f"phase 13d: {rounds}")
+    print(f"  K3 {launches[0]}, K3-bwd {launches[1]}, K1 per analyze {k1}; "
+          f"wall {wall:.3f} s")
+    print("pipeline complete.")
+    return {"rounds": rounds, "k3_launches": launches[0],
+            "k3_bwd_launches": launches[1], "k1_per_analyze": k1,
+            "wall_s": wall}
+
+
 def kernel_entry(name, source, replaces, launches, err, rows,
                  library: bool) -> dict:
     """One kernel's record: times summed over its timed shapes, bound
@@ -1878,7 +2290,7 @@ def run(torch) -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
-    sources = [km_kernel.SOURCE, fa_k.SOURCE, ms_k.SOURCE]
+    sources = [km_kernel.SOURCE, fa_k.SOURCE, ms_k.SOURCE, ms_k.BWD_SOURCE]
     build_s = build.build_all(sources)
     print(f"kernel build: {build_s:.2f} s")
     for src in sources:
@@ -2066,6 +2478,14 @@ def run(torch) -> int:
     engine_launches = ms_ops.LAUNCHES
     check(engine_launches > 0, "phase 12 launched no K3")
     print(f"  phase 12: K3 launched {engine_launches} times")
+    t_train = time.perf_counter()
+    bwd_err, train_scan_err, bwd_rows = phase_scan_bwd(torch, dev)
+    layer_grad_err = _mamba_layer_grads(
+        torch, dev, torch.Generator(device=dev).manual_seed(131))
+    training = phase_train(torch, dev, card)
+    hybrid = phase_hybrid(torch, dev)
+    train_s = time.perf_counter() - t_train
+    print(f"  phase 13: {train_s:.3f} s wall")
     t_bytes = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S
     t_ops = sum(s["flops"] for s in shapes) / FP32_FLOP_PER_S
     record = {"kernels": [{
@@ -2102,12 +2522,20 @@ def run(torch) -> int:
         kernel_entry(
         "mamba_scan", "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
         "src/repro/kernels/mamba_scan/mamba_scan.py:51",
-        tuned_launches["mamba_scan"], max(scan_err, *(
+        tuned_launches["mamba_scan"], max(scan_err, train_scan_err, *(
             e for k, e in model_errs.items()
             if k.endswith("K3 at serving shape"))), scan_rows,
         library=False) | {
         "launches_model": model_launches,
-        "launches_engine": engine_launches}],
+        "launches_engine": engine_launches,
+        "launches_train": training["k3_launches"],
+        "launches_hybrid": hybrid["k3_launches"]}, kernel_entry(
+        "mamba_scan_bwd",
+        "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu",
+        "src/repro/models/layers/mamba.py:62", training["k3_bwd_launches"],
+        bwd_err, bwd_rows, library=False) | {
+        "launches_hybrid": hybrid["k3_bwd_launches"],
+        "layer_grad_max_rel_err": layer_grad_err}],
         "main_path_wall_ms": {f"{n}/{p}": 1e3 * t
                               for (n, p), t in walls.items()},
         "autotune": {fam: {k: rec[k] for k in (
@@ -2117,7 +2545,9 @@ def run(torch) -> int:
         "profile": breakdown, "session": session_rows, "raptor": raptor,
         "recovery": recovery, "phases_8_10_s": phases_s, "build_s": build_s,
         "model_parity_max_abs_err": model_errs, "serving": serving,
-        "hymba_sublayer_ms": sublayers, "serving_engine": engine}
+        "hymba_sublayer_ms": sublayers, "serving_engine": engine,
+        "training": training, "hybrid_pipeline": hybrid,
+        "phase_13_s": train_s}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ the centroids.  :func:`load_numpy_state` places numpy arrays (as the
 reference's ``np.asarray`` gives them) under their names on the port's
 placement, with the same home pilots; :func:`state_to_numpy` reads them
 back.  bfloat16 arrays (numpy's ``ml_dtypes`` extension type) cross as
-their raw bits.
+their raw bits.  Model params and train states cross as trees of numpy
+arrays (:func:`params_from_numpy`, :func:`train_state_from_numpy` and
+their inverses).
 """
 from __future__ import annotations
 
@@ -50,6 +52,22 @@ def params_to_numpy(tree: Any) -> Any:
     """The same nested dicts and lists with every tensor leaf a numpy
     array (bfloat16 as ``ml_dtypes.bfloat16``)."""
     return tree_map(to_numpy, tree)
+
+
+def train_state_from_numpy(state: Any, device: Any = "cuda") -> Any:
+    """A reference train state, ``{"params", "opt": {"m", "v"}, "step"}``
+    as ``jax.tree.map(np.asarray, state)`` gives it, as the port's: the
+    same tree of tensors on `device` (``step`` a 0-d int32 tensor), each
+    a copy."""
+    device = resolve_device(device)
+    # copies: the optimizer updates the state in place, and a CPU tensor
+    # made from numpy would share (and so change) the caller's arrays
+    return tree_map(lambda a: to_tensor(a).to(device, copy=True), state)
+
+
+def train_state_to_numpy(state: Any) -> Any:
+    """The port's train state as the reference's tree of numpy arrays."""
+    return params_to_numpy(state)
 
 
 def _split(target: Any) -> tuple:

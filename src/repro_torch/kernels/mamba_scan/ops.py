@@ -4,6 +4,12 @@ For a CUDA tensor :func:`scan` launches the hand-written kernel
 (:mod:`.mamba_scan`) or raises — it never falls back.  For a CPU tensor
 it runs the plain version (:mod:`.ref`), which is what the CPU tests
 reach.  ``LAUNCHES`` counts kernel launches and nothing else.
+
+:func:`scan_backward` is the same for the backward (K3-bwd), counted in
+``BWD_LAUNCHES``.  :class:`Scan` joins the two as a
+``torch.autograd.Function``; it is what the model calls.  Under
+``no_grad`` or ``inference_mode`` its ``apply`` runs the forward alone and
+records nothing, so inference launches exactly the forward kernel.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from . import mamba_scan as kernel
 from . import ref
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 
@@ -80,3 +87,74 @@ def scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
     with _count_lock:
         LAUNCHES += 1
     return y, h_last
+
+
+def scan_backward(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
+                  h0: torch.Tensor, dy: Optional[torch.Tensor],
+                  dh_last: Optional[torch.Tensor], *,
+                  need: Tuple[bool, ...] = (True, True, True, True)
+                  ) -> Tuple[Optional[torch.Tensor], ...]:
+    """The backward of :func:`scan`: cotangents dy (B,S,di) and dh_last
+    (B,di,st), either None for zero -> (da, db, dC, dh0) in the inputs'
+    dtypes, None where `need` is False."""
+    if a.device.type == "cpu":
+        out = ref.scan_backward(a, b, C, h0, dy, dh_last)
+        return tuple(g if n else None for g, n in zip(out, need))
+    if a.device.type != "cuda":
+        raise ValueError(f"scan_backward: unsupported device {a.device}")
+    B, S, di, st = a.shape
+    want = {"b": (B, S, di, st), "C": (B, S, st), "h0": (B, di, st),
+            "dy": (B, S, di), "dh_last": (B, di, st)}
+    for name, t in (("b", b), ("C", C), ("h0", h0), ("dy", dy),
+                    ("dh_last", dh_last)):
+        if t is None:
+            continue
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"scan_backward: {name} has shape "
+                             f"{tuple(t.shape)}, want {want[name]}")
+        if t.device != a.device:
+            raise ValueError(f"scan_backward: inputs on {t.device} and "
+                             f"{a.device}")
+    for t in (a, b, C, h0):
+        if t.dtype != a.dtype or t.dtype not in (torch.float32,
+                                                 torch.bfloat16):
+            raise TypeError("scan_backward: inputs must share one dtype, "
+                            f"f32 or bf16; got {t.dtype} and {a.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("scan_backward: inputs must be contiguous")
+    if not 1 <= st <= kernel.MAX_ST:
+        raise ValueError(f"scan_backward: st={st} outside 1..{kernel.MAX_ST}")
+    if min(B, S, di) < 1 or B > 65535 or max(S, di) >= 2**31:
+        raise ValueError(f"scan_backward: shape {tuple(a.shape)} out of "
+                         "range")
+    # the cotangents arrive from autograd in any layout: f32, contiguous
+    dy = None if dy is None else dy.float().contiguous()
+    dh_last = None if dh_last is None else dh_last.float().contiguous()
+    da, db = torch.empty_like(a), torch.empty_like(b)
+    dC = torch.empty_like(C) if need[2] else None
+    dh0 = torch.empty_like(h0) if need[3] else None
+    kernel.scan_backward_cuda(a, b, C, h0, dy, dh_last, da, db, dC, dh0,
+                              bdi=kernel.bwd_rows(st))
+    global BWD_LAUNCHES
+    with _count_lock:
+        BWD_LAUNCHES += 1
+    return (da if need[0] else None, db if need[1] else None, dC, dh0)
+
+
+class Scan(torch.autograd.Function):
+    """:func:`scan` with :func:`scan_backward` as its gradient.  The
+    forward saves a, b, C and h0; the backward rebuilds h from them."""
+
+    @staticmethod
+    def forward(ctx, a, b, C, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, b, C, h0)
+        return scan(a, b, C, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        if dy is None and dh_last is None:
+            return None, None, None, None
+        return scan_backward(*ctx.saved_tensors, dy, dh_last,
+                             need=ctx.needs_input_grad)
+

@@ -3,10 +3,16 @@
 Sequential recurrence, state in f32:
     h_t = a_t * h_{t-1} + b_t         (elementwise over (di, st))
     y_t = sum_st h_t * C_t            (readout over the state dim)
+
+and its backward (the oracle of K3-bwd), the explicit reverse recurrence
+with g_t = dL/dh_t:
+    g_t = dy_t * C_t + a_{t+1} * g_{t+1},   a_S * g_S := dh_last
+    da_t = g_t * h_{t-1},  db_t = g_t,  dh0 = a_0 * g_0,
+    dC_t = sum_di dy_t * h_t
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,3 +27,34 @@ def scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
         h = a[:, t].float() * h + b[:, t].float()
         ys.append((h * C[:, t, None, :].float()).sum(dim=-1))
     return torch.stack(ys, dim=1), h
+
+
+def scan_backward(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
+                  h0: torch.Tensor, dy: Optional[torch.Tensor],
+                  dh_last: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Cotangents dy (B,S,di) and dh_last (B,di,st) (None: zero) of
+    :func:`scan`'s outputs -> (da, db, dC, dh0) in the inputs' dtypes;
+    h and g are carried in f32."""
+    B, S, di, st = a.shape
+    h = h0.float()
+    hs = []
+    for t in range(S):
+        h = a[:, t].float() * h + b[:, t].float()
+        hs.append(h)
+    if dy is None:
+        dy = torch.zeros((B, S, di), dtype=torch.float32, device=a.device)
+    dy = dy.float()
+    carry = (torch.zeros((B, di, st), dtype=torch.float32, device=a.device)
+             if dh_last is None else dh_last.float())
+    da = torch.empty((B, S, di, st), dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    dC = torch.empty((B, S, st), dtype=torch.float32, device=a.device)
+    for t in reversed(range(S)):
+        g = dy[:, t, :, None] * C[:, t, None, :].float() + carry
+        da[:, t] = g * (hs[t - 1] if t > 0 else h0.float())
+        db[:, t] = g
+        dC[:, t] = (dy[:, t, :, None] * hs[t]).sum(dim=1)
+        carry = a[:, t].float() * g
+    return (da.to(a.dtype), db.to(b.dtype), dC.to(C.dtype),
+            carry.to(h0.dtype))

@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .common import apply_rope, normal_init, rmsnorm, rope_angles
 
@@ -109,7 +110,10 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Online-softmax chunked attention; memory O(q_chunk * kv_chunk).
 
     Block-masked like the reference: every (q chunk, kv chunk) pair is
-    computed, fully masked ones included.
+    computed, fully masked ones included.  Where autograd records, each
+    (q chunk, kv chunk) step runs under ``torch.utils.checkpoint``, so
+    backward recomputes its score block instead of keeping it (the
+    reference's ``@jax.checkpoint kv_step``).
     """
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
@@ -117,6 +121,20 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     assert Sq % q_chunk == 0 and Sk % kv_chunk == 0, (Sq, Sk, q_chunk,
                                                       kv_chunk)
     scale = hd ** -0.5
+
+    def kv_step(m, l, acc, qi, ki, vi, qpi, kpi, kvi):
+        logits = torch.einsum("bqhd,bkhd->bhqk", qi, ki).float()
+        logits = logits * scale + _mask_bias(qpi, kpi, causal, window, kvi)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None].transpose(1, 2) + torch.einsum(
+            "bhqk,bkhd->bqhd", p.to(vi.dtype), vi).float()
+        return m_new, l, acc
+
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     outs = []
     for i in range(nq):
         qs = slice(i * q_chunk, (i + 1) * q_chunk)
@@ -128,18 +146,10 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device)
         for j in range(nk):
             ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
-            ki, vi = k[:, ks], v[:, ks]
-            kvi = None if k_valid is None else k_valid[ks]
-            logits = torch.einsum("bqhd,bkhd->bhqk", qi, ki).float()
-            logits = logits * scale + _mask_bias(qpi, k_pos[ks], causal,
-                                                 window, kvi)
-            m_new = torch.maximum(m, logits.amax(dim=-1))
-            p = torch.exp(logits - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None].transpose(1, 2) + torch.einsum(
-                "bhqk,bkhd->bqhd", p.to(vi.dtype), vi).float()
-            m = m_new
+            args = (m, l, acc, qi, k[:, ks], v[:, ks], qpi, k_pos[ks],
+                    None if k_valid is None else k_valid[ks])
+            m, l, acc = (checkpoint(kv_step, *args, use_reentrant=False)
+                         if remat else kv_step(*args))
         out = acc / l.clamp_min(1e-30)[..., None].transpose(1, 2)
         outs.append(out.to(q.dtype))
     return torch.cat(outs, dim=1)

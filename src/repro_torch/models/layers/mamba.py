@@ -10,6 +10,13 @@ launches the hand-written Hopper kernel, on a CPU tensor it runs the
 kernel's plain version.  K3 returns ``y`` and ``h_last`` and never
 materializes the (B, S, d_inner, d_state) states.  Decode is a one-step
 recurrence in plain PyTorch, as in the reference.
+
+The reference differentiates its own scan with JAX autodiff.  Here the
+scan's gradient is K3's backward (K3-bwd): ``mamba_forward`` calls
+:class:`~repro_torch.kernels.mamba_scan.ops.Scan`, an autograd Function
+whose backward launches K3-bwd on a CUDA tensor and runs its plain
+version on a CPU one.  Under ``no_grad`` or ``inference_mode`` it runs
+the forward alone and records nothing, so serving launches K3 alone.
 """
 from __future__ import annotations
 
@@ -56,6 +63,8 @@ def _ssm_inputs(cfg, p: Params, x1: torch.Tensor):
     dt_raw, Bc, Cc = torch.split(proj, [dr, st, st], dim=-1)
     dt = F.softplus((dt_raw @ p["dt_proj"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])  # (di, st)
+    # in place on the product: exp's backward reads its own output, the
+    # product's backward its inputs, so autograd allows it
     a = torch.exp_(dt[..., None] * A)                                # (B,S,di,st)
     b = (dt * x1.float())[..., None] * Bc.float()[:, :, None, :]
     return a, b, Cc
@@ -74,7 +83,8 @@ def _causal_conv(p: Params, x1: torch.Tensor) -> torch.Tensor:
 def mamba_forward(cfg, p: Params, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba (train/prefill). Returns (out, decode cache).
-    The scan is one K3 call (:mod:`repro_torch.kernels.mamba_scan`)."""
+    The scan is one K3 call (:mod:`repro_torch.kernels.mamba_scan`), and
+    one K3-bwd call in backward."""
     B, S, _ = x.shape
     di, st, dc = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.ssm_d_conv
     xz = x @ p["in_proj"]
@@ -86,8 +96,10 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor,
     chunk = min(SCAN_CHUNK, S)
     assert S % chunk == 0, (S, chunk)
     h0 = torch.zeros((B, di, st), dtype=torch.float32, device=x.device)
-    y, h_last = scan_ops.scan(a, b, Cc.float().contiguous(), h0)
-    del a, b  # (B, S, di, st) f32 each: gone before the next layer
+    y, h_last = scan_ops.Scan.apply(a, b, Cc.float().contiguous(), h0)
+    # (B, S, di, st) f32 each: gone before the next layer, unless the
+    # scan's backward holds them
+    del a, b
 
     y = y + p["D"] * x1.float()
     y = (y * F.silu(z.float())).to(x.dtype)

@@ -14,18 +14,31 @@ Block anatomy (pre-norm residual):
     x += cross_attn(ln(x), enc) [if seg.cross]
     x += ffn(ln(x))             [if seg.ffn]       (SwiGLU MLP or MoE)
 
-Every SSM layer's prefill scan is one launch of the selective-scan kernel
-(K3, see :mod:`repro_torch.models.layers.mamba`).  The reference's
-training and sharding machinery (remat, activation specs, the gradient
-dtype guard, optimization barriers, checkpoint names) is not part of
-this forward-only port.  ``decode_step`` updates the caches in place and
+Every SSM layer's scan is one launch of the selective-scan kernel (K3,
+see :mod:`repro_torch.models.layers.mamba`), and its gradient one launch
+of K3's backward.  ``decode_step`` updates the caches in place and
 returns them.
+
+Training: ``loss_fn`` and ``forward`` take ``remat=`` (default True, as
+in the reference): each layer's ``block_forward`` then runs under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+``jax.checkpoint`` around the reference's scan body, so backward
+recomputes the layer (K3 included) from its input.  The sequence-chunked
+CE checkpoints each chunk, and ``chunked_sdpa`` each score block, as the
+reference does.  Of the reference's other training devices:
+``_grad_dtype_guard`` needs no op here, since PyTorch already gives a
+bf16 tensor a bf16 gradient; ``optimization_barrier``, ``act_spec``,
+``save_spec`` and ``checkpoint_name`` are XLA/GSPMD devices with no
+single-card meaning, and wait for the sharding layer (ROADMAP Queue 1,
+item 16) and the ``save_tp_out`` remat policy (item 17): ``loss_fn``
+raises on a ``remat_policy``, and takes no activation specs.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
@@ -235,16 +248,39 @@ def _layer(seg_params: Params, i: int) -> Params:
     return tree_map(lambda t: t[i], seg_params)
 
 
+def _remat_block(cfg, seg: Segment, lp: Params, x, positions, enc_out,
+                 moe_groups: int, moe_ep_axis):
+    """block_forward under ``torch.utils.checkpoint``: only the layer's
+    input is kept, and backward recomputes the layer.  Returns (x, aux);
+    a training forward keeps no cache."""
+    def body(x, lp, enc_out):
+        y, _, aux = block_forward(cfg, seg, lp, x, positions, enc_out,
+                                  moe_groups, moe_ep_axis)
+        return y, aux
+    return checkpoint(body, x, lp, enc_out, use_reentrant=False)
+
+
 def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
-                  want_cache: bool = False, moe_groups: int = 1,
-                  moe_ep_axis=None, k_valid=None):
+                  remat: bool = False, want_cache: bool = False,
+                  moe_groups: int = 1, moe_ep_axis=None, k_valid=None):
     """Run each segment layer by layer; returns (x, per-segment stacked
-    caches, aux sum)."""
+    caches, aux sum).  With `remat` (and autograd recording) each layer
+    is rematerialized in backward (no caches, no pad mask)."""
+    # no _grad_dtype_guard: a bf16 residual stream already gets a bf16
+    # gradient in PyTorch
+    remat = remat and torch.is_grad_enabled()
+    if remat and (want_cache or k_valid is not None):
+        raise ValueError("remat keeps no caches and takes no pad mask")
     caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, sp in zip(segs, seg_params):
         layer_caches, auxes = [], []
         for i in range(seg.n_layers):
+            if remat:
+                x, aux = _remat_block(cfg, seg, _layer(sp, i), x, positions,
+                                      enc_out, moe_groups, moe_ep_axis)
+                auxes.append(aux)
+                continue
             x, cache, aux = block_forward(cfg, seg, _layer(sp, i), x,
                                           positions, enc_out, moe_groups,
                                           moe_ep_axis, k_valid)
@@ -260,13 +296,14 @@ def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
     return x, caches, aux_total
 
 
-def _encode(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
+def _encode(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, remat: bool = False):
     """The encoder stack of enc-dec archs over the stub frame embeddings."""
     enc_x = batch["frame_embeds"].to(cfg.param_dtype)
     enc_segs = build_segments(cfg, role="encoder")
     enc_out, _, _ = _run_segments(
         cfg, enc_segs, params["enc_segments"], enc_x,
-        torch.arange(enc_x.shape[1], device=enc_x.device))
+        torch.arange(enc_x.shape[1], device=enc_x.device), remat=remat)
     return common.rmsnorm(params["enc_final_norm"], enc_out, cfg.norm_eps)
 
 
@@ -279,23 +316,25 @@ def embed_inputs(cfg: ModelConfig, params: Params,
     return x
 
 
-def _hidden_states(cfg, params, batch, *, moe_groups=1, moe_ep_axis=None):
+def _hidden_states(cfg, params, batch, *, remat: bool = False,
+                   moe_groups=1, moe_ep_axis=None):
     """Forward to final hidden states (pre-unembed)."""
-    enc_out = _encode(cfg, params, batch) if cfg.is_encoder_decoder else None
+    enc_out = (_encode(cfg, params, batch, remat=remat)
+               if cfg.is_encoder_decoder else None)
     x = embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _, aux = _run_segments(cfg, build_segments(cfg), params["segments"],
-                              x, positions, enc_out, moe_groups=moe_groups,
-                              moe_ep_axis=moe_ep_axis)
+                              x, positions, enc_out, remat=remat,
+                              moe_groups=moe_groups, moe_ep_axis=moe_ep_axis)
     return common.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, moe_groups: int = 1, moe_ep_axis=None
+            *, remat: bool = True, moe_groups: int = 1, moe_ep_axis=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward to logits. Returns (logits, moe_aux)."""
-    x, aux = _hidden_states(cfg, params, batch, moe_groups=moe_groups,
-                            moe_ep_axis=moe_ep_axis)
+    x, aux = _hidden_states(cfg, params, batch, remat=remat,
+                            moe_groups=moe_groups, moe_ep_axis=moe_ep_axis)
     return common.unembed(cfg, params, x), aux
 
 
@@ -303,12 +342,19 @@ LOSS_CHUNK = 512  # sequence-chunked CE above this length (memory-linear)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, aux_coef: float = 0.01, moe_groups: int = 1,
-            moe_ep_axis=None) -> torch.Tensor:
-    """Mean next-token NLL plus `aux_coef` times the MoE aux loss (value
-    only; the backward pass comes with the trainer)."""
-    x, aux = _hidden_states(cfg, params, batch, moe_groups=moe_groups,
-                            moe_ep_axis=moe_ep_axis)
+            *, aux_coef: float = 0.01, remat: bool = True,
+            moe_groups: int = 1, moe_ep_axis=None, remat_policy=None
+            ) -> torch.Tensor:
+    """Mean next-token NLL plus `aux_coef` times the MoE aux loss;
+    differentiable (``loss.backward()`` or ``torch.autograd.grad``).
+    ``remat_policy`` (the reference's ``save_tp_out``) is not ported and
+    raises."""
+    if remat_policy is not None:
+        raise NotImplementedError(
+            f"loss_fn: remat_policy={remat_policy!r} is not ported; it waits "
+            "for the sharding layer (ROADMAP Queue 1, items 16 and 17)")
+    x, aux = _hidden_states(cfg, params, batch, remat=remat,
+                            moe_groups=moe_groups, moe_ep_axis=moe_ep_axis)
     labels, mask = batch["labels"], batch["mask"].float()
     if cfg.frontend == "vision":  # frontend tokens carry no LM loss
         pad = x.shape[1] - labels.shape[1]
@@ -316,15 +362,21 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     S = labels.shape[1]
     if S > LOSS_CHUNK and S % LOSS_CHUNK == 0:
         # chunk the unembed+CE over the sequence: the (B, S, V) f32
-        # logits never materialize
+        # logits never materialize, and backward recomputes them chunk
+        # by chunk (the reference's @jax.checkpoint chunk_nll)
+        def chunk_nll(xc, lc, mc):
+            logits = common.unembed(cfg, params, xc)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lc.long()[..., None])[..., 0]
+            return torch.sum((logz - gold) * mc)
+
         tot = torch.zeros((), device=x.device)
         cnt = torch.zeros((), device=x.device)
         for c in range(S // LOSS_CHUNK):
             sl = slice(c * LOSS_CHUNK, (c + 1) * LOSS_CHUNK)
-            logits = common.unembed(cfg, params, x[:, sl])
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, labels[:, sl].long()[..., None])[..., 0]
-            tot = tot + torch.sum((logz - gold) * mask[:, sl])
+            args = (x[:, sl], labels[:, sl], mask[:, sl])
+            tot = tot + (checkpoint(chunk_nll, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else chunk_nll(*args))
             cnt = cnt + torch.sum(mask[:, sl])
         nll = tot / cnt.clamp_min(1.0)
     else:

@@ -1,1 +1,1 @@
-from . import compression  # noqa: F401
+from . import adamw, compression, schedule  # noqa: F401

@@ -1,5 +1,6 @@
 """Helpers shared by every layer of the port: a map over nested
-containers of tensors, and the device an entry point runs on.
+containers of tensors, their leaves and paths in the reference's order,
+and the device an entry point runs on.
 
 It imports nothing of the port, so the core, the analytics engine,
 ``convert`` and the model stack can all depend on it without pulling
@@ -7,7 +8,7 @@ one another in.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Union
+from typing import Any, Callable, Iterator, List, Tuple, Union
 
 import torch
 
@@ -23,6 +24,25 @@ def tree_map(fn: Callable, *trees: Any) -> Any:
     if isinstance(first, (tuple, list)):
         return type(first)(tree_map(fn, *parts) for parts in zip(*trees))
     return fn(*trees)
+
+
+def tree_paths(tree: Any, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
+    """(path, leaf) for every leaf, in the order ``jax.tree.leaves`` gives
+    the same nested dicts and lists: dict keys sorted, sequences in
+    order.  A path is the tuple of keys and indices down to the leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of `tree` in :func:`tree_paths`'s order."""
+    return [leaf for _, leaf in tree_paths(tree)]
 
 
 def resolve_device(device: Device = "cuda") -> torch.device:

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or the JAX package ``repro``."""
+"""The port stands alone: no module of ``repro_torch``, no
+``examples/torch_*.py`` and not ``chip_smoke.py`` imports JAX or the JAX
+package ``repro``."""
 import ast
 from pathlib import Path
 
@@ -8,7 +9,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path: Path):
@@ -37,6 +38,12 @@ def test_scan_covers_the_port():
             "launch/serve.py"} \
         | {f"models/layers/{m}.py"
            for m in ("common", "attention", "mamba", "moe")} <= rel
+    assert {"optim/adamw.py", "optim/schedule.py", "optim/compression.py",
+            "train/step.py", "train/trainer.py", "train/multi_pilot.py",
+            "data/pipeline.py", "checkpoint/manager.py",
+            "launch/train.py"} <= rel
+    assert {"torch_train_e2e.py", "torch_hybrid_pipeline.py",
+            "torch_serve_batch.py"} <= names
     configs = {p.name for p in (ROOT / "src" / "repro" / "configs").glob(
         "*.py")}
     assert {f"configs/{name}" for name in configs} <= rel
@@ -56,7 +63,14 @@ def test_no_jax_or_reference_imports(path):
                                     "repro_torch.models.transformer",
                                     "repro_torch.data.batches",
                                     "repro_torch.serve",
-                                    "repro_torch.launch.serve"])
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.optim",
+                                    "repro_torch.data.pipeline",
+                                    "repro_torch.checkpoint",
+                                    "repro_torch.train",
+                                    "repro_torch.train.trainer",
+                                    "repro_torch.train.multi_pilot",
+                                    "repro_torch.launch.train"])
 def test_each_entry_module_imports_first(module):
     """No import cycle: each module imports on its own in a fresh
     interpreter (the Session imports ``convert``, which needs the
@@ -76,13 +90,16 @@ def test_each_entry_module_imports_first(module):
 def test_lower_layers_do_not_load_the_model_stack(module):
     """The core, ``convert`` and the analytics engine share their helpers
     through ``repro_torch.util``: importing one of them loads neither the
-    model stack nor, through it, the selective-scan kernel."""
+    model stack nor, through it, the selective-scan kernel, nor the
+    trainer and the checkpoints."""
     import subprocess
     import sys
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     code = (f"import sys, {module}; "
             "print(sorted(m for m in sys.modules if m.startswith("
-            "('repro_torch.models', 'repro_torch.kernels.mamba_scan'))))")
+            "('repro_torch.models', 'repro_torch.kernels.mamba_scan', "
+            "'repro_torch.train', 'repro_torch.checkpoint', "
+            "'repro_torch.data.pipeline'))))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr[-2000:]
