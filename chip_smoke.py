@@ -73,17 +73,23 @@ Phases (any failure raises and the script exits non-zero):
      must end with max_new tokens and no error; wall, req/s, time to
      first token and per output token are printed for each run;
  13. training (``optim/``, ``train/``, ``data/pipeline.py``,
-     ``checkpoint/``, ``launch/train.py``) with K3's backward (K3-bwd):
-     (a) K3-bwd and K3 forward against their plain versions at K3's
-     shapes plus the training (4 x 2048) and hybrid (2 x 512) shapes at
-     Hymba-1.5B width, K3-bwd twice (bitwise equal), timed beside its
-     bound, its plain version and K3 forward; (b) a full-width f32 Hymba-1.5B Mamba
-     layer's gradients on the card against the CPU; (c) Hymba-1.5B at
-     full width and depth trains 8 steps of 8 x 2048 in 2 microbatches
-     through ``launch.train`` (a gang CU on a Pilot): finite, falling
-     loss, K3 128 and K3-bwd 64 launches a step, one profiled step, a
-     blocking save of the whole state and a restore into a fresh Trainer
-     (bitwise), and resume exactness at 4 layers (rel 1e-3); (d) the
+     ``checkpoint/``, ``launch/train.py``) with the fused backward of the
+     scan and its input tail (``mamba_ssm_bwd``): (a) K3's op-level
+     backward (K3-bwd) and K3 forward against their plain versions at
+     K3's shapes plus the training (4 x 2048) and hybrid (2 x 512) shapes
+     at Hymba-1.5B width, K3-bwd twice (bitwise equal), timed beside its
+     bound, its plain version and K3 forward; then the fused backward
+     against its plain version at K3-bwd's test shapes and the training,
+     hybrid and Falcon-Mamba-7B shapes, twice (bitwise equal), its exp
+     against torch.exp in ulps, timed beside its bound, its plain version
+     and the path it replaces (the tail's autograd and K3-bwd); (b) a
+     full-width f32 Hymba-1.5B Mamba layer's gradients on the card
+     against the CPU; (c) Hymba-1.5B at full width and depth trains 8
+     steps of 8 x 2048 in 2 microbatches through ``launch.train`` (a gang
+     CU on a Pilot): finite, falling loss, K3 128, the fused backward 64
+     and K3-bwd 0 launches a step, one profiled step, a blocking save of
+     the whole state and a restore into a fresh Trainer (bitwise), and
+     resume exactness at 4 layers (rel 1e-3); (d) the
      paper's simulate -> analyze -> train DAG
      (``examples/torch_hybrid_pipeline.py``) at Hymba-1.5B width on
      pilots ``hpc`` and ``ana``, K1 in every analyze, ending "pipeline
@@ -92,9 +98,10 @@ Phases (any failure raises and the script exits non-zero):
 Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
 it and reads them after.  Phase 11b sets K3's count to 0 before it and
 reads it after (``launches_model``), and so does phase 12
-(``launches_engine``).  Phases 13c and 13d set K3's and K3-bwd's counts
-to 0 before them and read them after (``launches_train``,
-``launches_hybrid``; K3-bwd's ``launches`` is 13c's).
+(``launches_engine``).  Phases 13c and 13d set K3's, the fused
+backward's and K3-bwd's counts to 0 before them and read them after
+(``launches_train``, ``launches_hybrid``; the fused backward's and
+K3-bwd's ``launches`` are 13c's: K3-bwd is off the model path, 0).
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -123,6 +130,10 @@ HBM_BYTES_PER_S = 3.35e12
 # (3xTF32), so its f32 peak is a third of the TF32 one.
 TF32X3_FLOP_PER_S = 495e12 / 3
 BF16_TC_FLOP_PER_S = 989e12
+# the SFU (exp2, the core of expf): 16 results a clock an SM (CUDA C
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz, the clock of the FP32 peak above
+SFU_PER_S = 16 * 132 * 1.98e9
 
 ITERS = 2          # the paper's K-Means iterations
 REPS = 5           # main-path repetitions per scenario and path
@@ -228,6 +239,25 @@ BWD_CASES = [
     ("falcon-mamba-7b", 1, 2048, 8192, 16, False, True),
 ]
 BWD_TOL, BWD_BF16_TOL = 1e-4, 2e-2
+# phase 13a: the fused backward of the scan and its input tail (label, B,
+# S, di, st, timed) at K3-bwd's test shapes (st 2, st 32 and a ragged S
+# among them), the training and hybrid shapes at Hymba-1.5B width and
+# Falcon-Mamba-7B's width.  ddt, du and dh0 are held like K3-bwd's outputs
+# (SSM_TOL); dBc and dC sum over d_inner (3200 or 8192 rows) and dA over
+# B x S steps, in another order than the plain loop, so they are held at
+# SSM_SUM_TOL x max |want|
+SSM_CASES = [
+    ("test 1x32x8x4", 1, 32, 8, 4, False),
+    ("test 2x64x16x8", 2, 64, 16, 8, False),
+    ("test 1x128x32x16", 1, 128, 32, 16, False),
+    ("st=2 1x40x8x2", 1, 40, 8, 2, False),
+    ("odd 2x37x5x32", 2, 37, 5, 32, False),
+    ("hymba-1.5b train", 4, 2048, 3200, 16, True),
+    ("hymba-1.5b hybrid", 2, 512, 3200, 16, False),
+    ("falcon-mamba-7b", 1, 2048, 8192, 16, True),
+]
+SSM_TOL, SSM_SUM_TOL = 1e-4, 1e-3
+REPLACED_REPS = 5      # the replaced path's backward: ~10 ms a call
 # 13b: a full-width f32 Mamba layer's gradients, card vs CPU, per leaf
 # max |err| <= GRAD_TOL * max |want| (sums over 512 steps and 3200 rows
 # in other orders)
@@ -959,8 +989,8 @@ def phase_model_parity(torch, dev) -> dict:
 
 def _device_profile(torch, fn) -> dict:
     """`fn` once under torch.profiler: device busy time (self device time
-    of every kernel; one stream, so they do not overlap), K3's part and
-    K3-bwd's (its two kernels)."""
+    of every kernel; one stream, so they do not overlap), K3's part,
+    K3-bwd's (its two kernels) and the fused backward's (its two)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -980,10 +1010,13 @@ def _device_profile(torch, fn) -> dict:
     k3 = sum(dev_us(e) for e in kernels if "mamba_scan_kernel" in e.key) / 1e3
     k3_bwd = sum(dev_us(e) for e in kernels if "mamba_scan_bwd_kernel"
                  in e.key or "mamba_scan_dc_kernel" in e.key) / 1e3
+    ssm_bwd = sum(dev_us(e) for e in kernels if "mamba_ssm_bwd" in e.key) / 1e3
     return {"wall_ms": wall, "device_busy_ms": busy, "k3_device_ms": k3,
             "k3_share": k3 / busy if busy else None,
             "k3_bwd_device_ms": k3_bwd,
             "k3_bwd_share": k3_bwd / busy if busy else None,
+            "ssm_bwd_device_ms": ssm_bwd,
+            "ssm_bwd_share": ssm_bwd / busy if busy else None,
             "busy_share": busy / wall if busy else None,
             "kernels": len(kernels),
             "kernel_launches": sum(e.count for e in kernels),
@@ -1954,12 +1987,170 @@ def phase_scan_bwd(torch, dev):
     return max_err, fwd_err, rows
 
 
+def ssm_bwd_bound(B: int, S: int, di: int, st: int) -> dict:
+    """The fused backward's least time.  Bytes, all f32: dt, u and dy read
+    once and ddt, du written once ((B, S, di) each); Bc, C read and dBc,
+    dC written ((B, S, st)); A read and dA written ((di, st)); h0, dh_last
+    read and dh0 written ((B, di, st)).  Operations, per element of the
+    (B, S, di, st) state: 22 FP32 operations (an FMA counts 2): the
+    forward walk's dt A, u Bc and h's FMA (4), the backward walk's rebuild
+    of the same (4), g's FMA, a g, a g h_{t-1} (4) and the ddt, dA, du,
+    dBc and dC FMAs (10); and 2 exp (one a walk) at the SFU's rate.  The
+    FP32 and SFU pipes run side by side: the larger of the two."""
+    big = B * S * di * st
+    nbytes = 4 * (5 * B * S * di + 4 * B * S * st + 2 * di * st
+                  + 3 * B * di * st)
+    t_ops = max(22 * big / FP32_FLOP_PER_S, 2 * big / SFU_PER_S)
+    return bound_from(nbytes / HBM_BYTES_PER_S, t_ops, bytes=nbytes,
+                      flops=22 * big, exps=2 * big)
+
+
+def ssm_bwd_inputs(torch, gen, dev, B, S, di, st) -> tuple:
+    """(dt, A, u, Bc, C, h0, dy, dh_last), f32, at a Mamba layer's scale:
+    dt after the softplus in (0.001, 0.1), A = -(1..st) per row (the
+    configs' init) times (0.5, 1.5), u = dt x1 with x1 normal, Bc, C and
+    the cotangents normal, h0 normal x 0.1."""
+    dt = 0.001 + 0.099 * torch.rand(B, S, di, generator=gen, device=dev)
+    A = -torch.arange(1, st + 1, dtype=torch.float32, device=dev) * (
+        0.5 + torch.rand(di, st, generator=gen, device=dev))
+    u = dt * randn(torch, gen, dev, B, S, di)
+    return (dt, A.contiguous(), u, randn(torch, gen, dev, B, S, st),
+            randn(torch, gen, dev, B, S, st),
+            randn(torch, gen, dev, B, di, st, scale=0.1),
+            randn(torch, gen, dev, B, S, di),
+            randn(torch, gen, dev, B, di, st))
+
+
+def ssm_held(torch, got, want, label: str) -> dict:
+    """The fused backward's outputs (ddt, dA, du, dBc, dC, dh0) against
+    its plain version's: ddt, du and dh0 held elementwise at SSM_TOL (max
+    |err| returned), the sums dBc, dC and dA at SSM_SUM_TOL x max |want|
+    (max |err| / max |want| returned)."""
+    errs = {}
+    for g, w, n in zip(got, want, ("ddt", "dA", "du", "dBc", "dC", "dh0")):
+        check(g.shape == w.shape and g.dtype == torch.float32,
+              f"{label} {n}: {g.dtype} {tuple(g.shape)}")
+        if n in ("dBc", "dC", "dA"):
+            check(bool(torch.isfinite(g).all()), f"{label} {n}: non-finite")
+            scale = w.abs().max().item()
+            e = (g - w).abs().max().item()
+            check(e <= SSM_SUM_TOL * scale, f"{label} {n}: max |err| {e:.3e} "
+                  f"over {SSM_SUM_TOL} x max |want| {scale:.3e}")
+            errs[n] = e / scale if scale else 0.0
+        else:
+            errs[n] = held(torch, g, w, SSM_TOL, f"{label} {n}")
+    return errs
+
+
+def replaced_path(torch, ms_ops, dt, A, u, Bc, C, h0):
+    """What the model ran before the fused backward: the tail as
+    ``_ssm_inputs`` computes it, then ``ops.Scan`` (K3, K3-bwd)."""
+    a = torch.exp_(dt[..., None] * A)
+    b = u[..., None] * Bc[:, :, None, :]
+    return ms_ops.Scan.apply(a, b, C, h0)
+
+
+def backward_ms(torch, fwd, args, reps: int) -> float:
+    """Device time of one backward through `fwd`'s graph on args[:6]
+    (each requiring grad) for the cotangents args[6:], the graph kept."""
+    ins = [x.detach().requires_grad_(True) for x in args[:6]]
+    outs = fwd(*ins)
+    ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        outs, ins, args[6:], retain_graph=True), reps)
+    del outs, ins
+    return ms
+
+
+def phase_ssm_bwd(torch, dev):
+    """13a. The fused backward of the scan and its input tail
+    (``mamba_ssm_bwd.cu``) against its plain version (``ref.ssm_backward``)
+    at SSM_CASES, run twice (bitwise equal); at the timed shapes, timed
+    beside its bound, its plain version and the path it replaces (the
+    tail's autograd and K3-bwd, one backward through each graph); its
+    exp(dt A) against torch.exp's at the training shape, in ulps.
+    Returns (max |err| of the per-element outputs, max |err| / max |want|
+    of the sums, timed rows, the exp's max ulp difference)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms_k
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+    print("phase 13a: fused backward of the scan and its tail "
+          "(mamba_ssm_bwd) against its plain version")
+    gen = torch.Generator(device=dev).manual_seed(131)
+    max_err, sum_err, rows, ulps = 0.0, 0.0, [], None
+    for label, B, S, di, st, timed in SSM_CASES:
+        args = ssm_bwd_inputs(torch, gen, dev, B, S, di, st)
+        got = ms_ops.ssm_backward(*args)
+        again = ms_ops.ssm_backward(*args)
+        want = ms_ref.ssm_backward(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, h) for g, h in zip(got, again)),
+              f"{label}: two runs on the same inputs differ")
+        errs = ssm_held(torch, got, want, label)
+        max_err = max(max_err, *(errs[n] for n in ("ddt", "du", "dh0")))
+        sum_err = max(sum_err, *(errs[n] for n in ("dBc", "dC", "dA")))
+        line = (f"  {label}: " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                            errs.items())
+                + f" (ddt, du, dh0 max |err|, tol {SSM_TOL}; dBc, dC, dA "
+                f"over max |want|, tol {SSM_SUM_TOL}), bitwise equal over "
+                "two runs")
+        del got, again, want
+        if timed:
+            lay = ms_k.ssm_layout(di, st)
+            occ = ms_k.ssm_occupancy(di, st)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            blocks = lay["blocks"] * B
+            waves = max(blocks / (occ["blocks_per_sm"] * sms),
+                        blocks / lay["cluster"] / occ["resident_clusters"])
+            print(f"  {label} launch: {lay['lane_states']} states a lane, "
+                  f"{ms_k.SSM_THREADS} threads, {lay['rows']} rows a block, "
+                  f"clusters of {lay['cluster']}, {blocks} blocks; "
+                  f"{occ['blocks_per_sm']} blocks "
+                  f"({occ['blocks_per_sm'] * ms_k.SSM_THREADS // 32} warps) "
+                  f"resident an SM, {occ['resident_clusters']} clusters at "
+                  f"once: {waves:.2f} waves")
+            if ulps is None:
+                dt, A = args[:2]
+                mine = ms_k.decay_cuda(dt, A).view(torch.int32)
+                theirs = torch.exp(dt[..., None] * A).view(torch.int32)
+                diff = (mine - theirs).abs()
+                ulps = int(diff.max().item())
+                print(f"  exp(dt A) in the kernel vs torch.exp at {label}: "
+                      f"max {ulps} ulp, {int((diff > 0).sum().item())} of "
+                      f"{diff.numel()} differ")
+                del mine, theirs, diff
+            # kernel, plain, kernel: in turns on one card
+            t_k = cuda_ms(torch, lambda: ms_ops.ssm_backward(*args))
+            t_p = cuda_ms(torch, lambda: ms_ref.ssm_backward(*args), 1)
+            t_k = min(t_k, cuda_ms(torch, lambda: ms_ops.ssm_backward(*args)))
+            t_old = backward_ms(torch, lambda *x: replaced_path(
+                torch, ms_ops, *x), args, REPLACED_REPS)
+            t_new = backward_ms(torch, ms_ops.SelectiveScan.apply, args,
+                                REPLACED_REPS)
+            bound = ssm_bwd_bound(B, S, di, st)
+            rows.append({"shape": label, "B": B, "S": S, "di": di, "st": st,
+                         "layout": lay | occ, "waves": waves,
+                         "ms": t_k, "plain_ms": t_p, "replaced_ms": t_old,
+                         "function_backward_ms": t_new, "library_ms": None,
+                         **bound})
+            line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, replaced "
+                     f"path (tail autograd + K3-bwd) {t_old:.4f} ms, the "
+                     f"Function's backward {t_new:.4f} ms, bound "
+                     f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+                     f"bytes {1e3 * bound['t_bytes']:.4f}, operations "
+                     f"{1e3 * bound['t_ops']:.4f}), "
+                     f"{bound['bytes'] / t_k / 1e9:.3f} TB/s")
+        print(line)
+        del args
+    torch.cuda.empty_cache()
+    return max_err, sum_err, rows, ulps
+
+
 def _mamba_layer_grads(torch, dev, gen) -> float:
     """13b. One Hymba-1.5B Mamba layer at full width in f32, B 1 x S 512:
     every parameter's (and the input's) gradient for a fixed random
-    cotangent, on the card (K3 + K3-bwd) against the same layer on the
-    CPU (the plain scan and its plain backward), per leaf max |err| <=
-    GRAD_TOL * max |want|."""
+    cotangent, on the card (K3 + the fused backward) against the same
+    layer on the CPU (the plain scan and the plain fused backward), per
+    leaf max |err| <= GRAD_TOL * max |want|."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.kernels.mamba_scan import ops as ms_ops
@@ -1977,14 +2168,16 @@ def _mamba_layer_grads(torch, dev, gen) -> float:
         gs = torch.autograd.grad((out * cot).sum(), leaves + [xs])
         return out, dict(zip(names + ["x"], gs))
 
-    k3, bwd = ms_ops.LAUNCHES, ms_ops.BWD_LAUNCHES
+    before = (ms_ops.LAUNCHES, ms_ops.SSM_BWD_LAUNCHES, ms_ops.BWD_LAUNCHES)
     out, got = grads(p, x, cot)
     torch.cuda.synchronize()
     check(out.grad_fn is not None, "Mamba layer output has no grad_fn on "
           "the card")
-    check((ms_ops.LAUNCHES - k3, ms_ops.BWD_LAUNCHES - bwd) == (1, 1),
-          f"Mamba layer gradient: {ms_ops.LAUNCHES - k3} K3 and "
-          f"{ms_ops.BWD_LAUNCHES - bwd} K3-bwd launches, want 1 and 1")
+    n = tuple(x - y for x, y in zip(
+        (ms_ops.LAUNCHES, ms_ops.SSM_BWD_LAUNCHES, ms_ops.BWD_LAUNCHES),
+        before))
+    check(n == (1, 1, 0), f"Mamba layer gradient: K3 {n[0]}, fused "
+          f"backward {n[1]}, K3-bwd {n[2]} launches, want 1, 1, 0")
     _, want = grads({k: v.cpu() for k, v in p.items()}, x.cpu(), cot.cpu())
     worst = 0.0
     for name, w in want.items():
@@ -1994,7 +2187,8 @@ def _mamba_layer_grads(torch, dev, gen) -> float:
               f"{err:.3e} over {GRAD_TOL} x max |want| {scale:.3e}")
         worst = max(worst, err / scale if scale else 0.0)
     print(f"  phase 13b: Hymba-1.5B Mamba layer (B 1, S {LAYER_S}, f32): "
-          f"{len(want)} gradients, card (K3 + K3-bwd) vs CPU (plain) worst "
+          f"{len(want)} gradients, card (K3 + fused backward) vs CPU (plain) "
+          f"worst "
           f"max |err| / max |want| {worst:.3e} (tol {GRAD_TOL}); output "
           "grad_fn set")
     return worst
@@ -2115,8 +2309,9 @@ def _resume_exactness(torch, dev) -> dict:
 def phase_train(torch, dev, card: str) -> dict:
     """13c. Hymba-1.5B at full width and depth trains TRAIN_STEPS steps
     through ``launch/train``'s path (a gang CU on a Pilot): finite and
-    falling loss, K3 and K3-bwd launched exactly 128 and 64 times a step
-    (counts set to 0 just before, read just after), the step time, a
+    falling loss, K3 and the fused backward launched exactly 128 and 64
+    times a step and K3-bwd never (counts set to 0 just before, read just
+    after), the step time, a
     profiled step, a checkpoint round trip of the whole state, and resume
     exactness at 4 layers."""
     from repro_torch import configs
@@ -2131,20 +2326,22 @@ def phase_train(torch, dev, card: str) -> dict:
           f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_STEPS} steps")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    ms_ops.LAUNCHES = ms_ops.BWD_LAUNCHES = 0   # phase 13c's window
+    # phase 13c's window
+    ms_ops.LAUNCHES = ms_ops.SSM_BWD_LAUNCHES = ms_ops.BWD_LAUNCHES = 0
     out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 microbatches=TRAIN_MICROBATCHES, lr=TRAIN_LR,
                 warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
                 log_every=1, device=dev)
     torch.cuda.synchronize()
-    launches = (ms_ops.LAUNCHES, ms_ops.BWD_LAUNCHES)
+    launches = (ms_ops.LAUNCHES, ms_ops.SSM_BWD_LAUNCHES, ms_ops.BWD_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     hist, trainer = out["history"], out["trainer"]
-    per_step = (2 * n_ssm * TRAIN_MICROBATCHES, n_ssm * TRAIN_MICROBATCHES)
+    per_step = (2 * n_ssm * TRAIN_MICROBATCHES, n_ssm * TRAIN_MICROBATCHES, 0)
     check(len(hist) == TRAIN_STEPS, f"trained {len(hist)} steps")
-    check(launches == (TRAIN_STEPS * per_step[0], TRAIN_STEPS * per_step[1]),
-          f"phase 13c launched K3 {launches[0]} and K3-bwd {launches[1]} "
-          f"times, want {per_step[0]} and {per_step[1]} a step")
+    check(launches == tuple(TRAIN_STEPS * n for n in per_step),
+          f"phase 13c launched K3 {launches[0]}, the fused backward "
+          f"{launches[1]} and K3-bwd {launches[2]} times, want {per_step} a "
+          "step")
     losses = [h["loss"] for h in hist]
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
               for h in hist), f"non-finite loss or grad_norm: {hist}")
@@ -2156,15 +2353,16 @@ def phase_train(torch, dev, card: str) -> dict:
     print(f"  {step_ms:.1f} ms a step (median of steps 1-{TRAIN_STEPS - 1}; "
           f"step 0 {1e3 * hist[0]['step_s']:.1f} ms), "
           f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
-          f"{peak_gb:.2f} GB; K3 {per_step[0]} and K3-bwd {per_step[1]} "
-          f"launches a step [{card}]")
+          f"{peak_gb:.2f} GB; K3 {per_step[0]}, the fused backward "
+          f"{per_step[1]} and K3-bwd {per_step[2]} launches a step [{card}]")
     prof = _device_profile(torch, lambda: trainer.run(
         TRAIN_STEPS + 1, log_every=0))
     print(f"  profiled step: wall {prof['wall_ms']:.1f} ms, device busy "
           f"{prof['device_busy_ms']:.1f} ms ({_share(prof['busy_share'])}), "
           f"K3 {prof['k3_device_ms']:.1f} ms ({_share(prof['k3_share'])}), "
-          f"K3-bwd {prof['k3_bwd_device_ms']:.1f} ms "
-          f"({_share(prof['k3_bwd_share'])}) of device time [{card}]")
+          f"fused backward {prof['ssm_bwd_device_ms']:.1f} ms "
+          f"({_share(prof['ssm_bwd_share'])}), K3-bwd "
+          f"{prof['k3_bwd_device_ms']:.1f} ms of device time [{card}]")
     for key, ms in prof["top_device_ms"]:
         print(f"      device {ms:9.4f} ms  {key}")
     ckpt = _checkpoint_roundtrip(torch, dev, cfg, trainer, card)
@@ -2178,16 +2376,17 @@ def phase_train(torch, dev, card: str) -> dict:
             "step_ms": step_ms, "step_ms_all": [1e3 * h["step_s"]
                                                 for h in hist],
             "tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
-            "k3_launches": launches[0], "k3_bwd_launches": launches[1],
-            "profile": prof, "checkpoint": ckpt, "resume": resume}
+            "k3_launches": launches[0], "ssm_bwd_launches": launches[1],
+            "k3_bwd_launches": launches[2], "profile": prof,
+            "checkpoint": ckpt, "resume": resume}
 
 
 def phase_hybrid(torch, dev) -> dict:
     """13d. The paper's simulate -> analyze -> train DAG
     (``examples/torch_hybrid_pipeline.py``) on the card: a Session over
     pilots ``hpc`` and ``ana`` on ``[dev] * 2``, Hymba-1.5B at full width
-    training in ``simulate`` (K3, K3-bwd), K-Means with K1 in every
-    ``analyze``."""
+    training in ``simulate`` (K3, the fused backward; K3-bwd never),
+    K-Means with K1 in every ``analyze``."""
     import importlib.util
     from repro_torch import configs
     from repro_torch.kernels.kmeans import ops
@@ -2210,7 +2409,8 @@ def phase_hybrid(torch, dev) -> dict:
         k1.append(ops.LAUNCHES - before)
         return res
 
-    ms_ops.LAUNCHES = ms_ops.BWD_LAUNCHES = 0   # phase 13d's window
+    # phase 13d's window
+    ms_ops.LAUNCHES = ms_ops.SSM_BWD_LAUNCHES = ms_ops.BWD_LAUNCHES = 0
     session = example.make_session(dev)
     t0 = time.perf_counter()
     try:
@@ -2220,23 +2420,23 @@ def phase_hybrid(torch, dev) -> dict:
     finally:
         session.shutdown()
     wall = time.perf_counter() - t0
-    launches = (ms_ops.LAUNCHES, ms_ops.BWD_LAUNCHES)
+    launches = (ms_ops.LAUNCHES, ms_ops.SSM_BWD_LAUNCHES, ms_ops.BWD_LAUNCHES)
     # each round: HYBRID_STEPS steps (forward + remat recompute + backward)
     # and one probe forward without grad
     want = (HYBRID_ROUNDS * n_ssm * (2 * HYBRID_STEPS + 1),
-            HYBRID_ROUNDS * n_ssm * HYBRID_STEPS)
-    check(launches == want, f"phase 13d: K3 {launches[0]}, K3-bwd "
-          f"{launches[1]} launches, want {want}")
+            HYBRID_ROUNDS * n_ssm * HYBRID_STEPS, 0)
+    check(launches == want, f"phase 13d: K3 {launches[0]}, fused backward "
+          f"{launches[1]}, K3-bwd {launches[2]} launches, want {want}")
     check(len(k1) == HYBRID_ROUNDS and all(n > 0 for n in k1),
           f"phase 13d: K1 launches per analyze {k1}")
     check(all(math.isfinite(r["loss"]) and math.isfinite(r["cost"])
               for r in rounds), f"phase 13d: {rounds}")
-    print(f"  K3 {launches[0]}, K3-bwd {launches[1]}, K1 per analyze {k1}; "
-          f"wall {wall:.3f} s")
+    print(f"  K3 {launches[0]}, fused backward {launches[1]}, K3-bwd "
+          f"{launches[2]}, K1 per analyze {k1}; wall {wall:.3f} s")
     print("pipeline complete.")
     return {"rounds": rounds, "k3_launches": launches[0],
-            "k3_bwd_launches": launches[1], "k1_per_analyze": k1,
-            "wall_s": wall}
+            "ssm_bwd_launches": launches[1], "k3_bwd_launches": launches[2],
+            "k1_per_analyze": k1, "wall_s": wall}
 
 
 def kernel_entry(name, source, replaces, launches, err, rows,
@@ -2290,7 +2490,8 @@ def run(torch) -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
-    sources = [km_kernel.SOURCE, fa_k.SOURCE, ms_k.SOURCE, ms_k.BWD_SOURCE]
+    sources = [km_kernel.SOURCE, fa_k.SOURCE, ms_k.SOURCE, ms_k.BWD_SOURCE,
+               ms_k.SSM_BWD_SOURCE]
     build_s = build.build_all(sources)
     print(f"kernel build: {build_s:.2f} s")
     for src in sources:
@@ -2480,6 +2681,7 @@ def run(torch) -> int:
     print(f"  phase 12: K3 launched {engine_launches} times")
     t_train = time.perf_counter()
     bwd_err, train_scan_err, bwd_rows = phase_scan_bwd(torch, dev)
+    ssm_err, ssm_sum_err, ssm_rows, ssm_ulps = phase_ssm_bwd(torch, dev)
     layer_grad_err = _mamba_layer_grads(
         torch, dev, torch.Generator(device=dev).manual_seed(131))
     training = phase_train(torch, dev, card)
@@ -2534,8 +2736,15 @@ def run(torch) -> int:
         "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu",
         "src/repro/models/layers/mamba.py:62", training["k3_bwd_launches"],
         bwd_err, bwd_rows, library=False) | {
-        "launches_hybrid": hybrid["k3_bwd_launches"],
-        "layer_grad_max_rel_err": layer_grad_err}],
+        "launches_hybrid": hybrid["k3_bwd_launches"]}, kernel_entry(
+        "mamba_ssm_bwd",
+        "src/repro_torch/kernels/mamba_scan/csrc/mamba_ssm_bwd.cu",
+        "src/repro/models/layers/mamba.py:46", training["ssm_bwd_launches"],
+        ssm_err, ssm_rows, library=False) | {
+        "max_rel_err_sums": ssm_sum_err, "exp_max_ulp": ssm_ulps,
+        "launches_hybrid": hybrid["ssm_bwd_launches"],
+        "layer_grad_max_rel_err": layer_grad_err,
+        "replaced_ms": sum(r["replaced_ms"] for r in ssm_rows)}],
         "main_path_wall_ms": {f"{n}/{p}": 1e3 * t
                               for (n, p), t in walls.items()},
         "autotune": {fam: {k: rec[k] for k in (

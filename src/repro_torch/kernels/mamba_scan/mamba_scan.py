@@ -14,6 +14,12 @@ wrapper with its checks is :func:`..ops.scan`.
 registers and walked backwards, dC reduced over d_inner in block order
 by a second small kernel.  :func:`scan_backward_cuda` launches the pair;
 the public wrapper is :func:`..ops.scan_backward`.
+
+``csrc/mamba_ssm_bwd.cu`` is the model path's backward: the gradient of
+the scan and its input tail ``a = exp(dt A)``, ``b = u Bc`` together,
+rebuilding a and b in registers so that no (B, S, d_inner, d_state)
+tensor is read or written.  :func:`ssm_backward_cuda` launches it; the
+public wrapper is :func:`..ops.ssm_backward`.
 """
 from __future__ import annotations
 
@@ -33,6 +39,9 @@ BS_BUILT = (4, 8, 16)   # the time steps a lane can load ahead (bs)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_THREADS = 256       # MSB_THREADS: the backward's block
 BWD_CHUNK = 16          # MSB_T: steps between the backward's h checkpoints
+SSM_BWD_SOURCE = SOURCE.with_name("mamba_ssm_bwd.cu")
+SSM_CHUNK = 16          # MSS_T: steps between the fused backward's checkpoints
+SSM_THREADS = 128       # MSS_THREADS: threads a block
 
 
 def state_lanes(st: int) -> int:
@@ -143,3 +152,101 @@ def scan_backward_cuda(a, b, C, h0, dy, dh_last, da, db, dC, dh0, *,
     if err != 0:
         raise RuntimeError(f"mamba_scan_bwd launch failed: CUDA error {err} "
                            f"(B={B}, S={S}, di={di}, st={st}, bdi={bdi})")
+
+
+@functools.cache
+def library_ssm_bwd() -> ctypes.CDLL:
+    """The built fused-backward library with its C signatures declared."""
+    lib = build.load(SSM_BWD_SOURCE)
+    lib.mamba_ssm_bwd.argtypes = [ctypes.c_void_p] * 17 \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.mamba_ssm_bwd.restype = ctypes.c_int
+    for name in ("mamba_ssm_bwd_layout", "mamba_ssm_bwd_occupancy"):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 2 + [
+            ctypes.POINTER(ctypes.c_int)]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.mamba_ssm_bwd_decay.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.mamba_ssm_bwd_decay.restype = ctypes.c_int
+    consts = ("mamba_ssm_bwd_max_st", "mamba_ssm_bwd_chunk",
+              "mamba_ssm_bwd_threads")
+    for name in consts:
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    if tuple(getattr(lib, name)() for name in consts) != (
+            MAX_ST, SSM_CHUNK, SSM_THREADS):
+        raise RuntimeError("mamba_ssm_bwd.cu constants disagree with "
+                           f"MAX_ST={MAX_ST}, SSM_CHUNK={SSM_CHUNK}, "
+                           f"SSM_THREADS={SSM_THREADS}")
+    return lib
+
+
+def ssm_layout(di: int, st: int) -> dict:
+    """The fused backward's launch layout, from the kernel library:
+    rows a block, blocks along d_inner, blocks a cluster, clusters along
+    d_inner, bytes of shared memory, padded state width, states a
+    lane."""
+    out = (ctypes.c_int * 7)()
+    if library_ssm_bwd().mamba_ssm_bwd_layout(di, st, out) != 0:
+        raise ValueError(f"mamba_ssm_bwd: no layout for di={di}, st={st}")
+    return dict(zip(("rows", "blocks", "cluster", "clusters", "smem",
+                     "st_pad", "lane_states"), out))
+
+
+def ssm_occupancy(di: int, st: int) -> dict:
+    """Blocks of the fused backward resident on one SM and clusters
+    resident on the card at once, for its launch at (di, st), from the
+    CUDA occupancy calculator."""
+    out = (ctypes.c_int * 2)()
+    err = library_ssm_bwd().mamba_ssm_bwd_occupancy(di, st, out)
+    if err != 0:
+        raise RuntimeError(f"mamba_ssm_bwd_occupancy: CUDA error {err}")
+    return {"blocks_per_sm": out[0], "resident_clusters": out[1]}
+
+
+def ssm_backward_cuda(dt, A, u, Bc, C, h0, dy, dh_last, ddt, du, dBc, dC,
+                      dA, dh0) -> None:
+    """Launch the fused backward and its summing kernel: contiguous f32
+    dt, u (B, S, di), A (di, st), Bc, C (B, S, st), h0 (B, di, st); dy
+    (B, S, di) and dh_last (B, di, st) f32 or None (zero); outputs ddt,
+    du, dBc, dC, dA and, unless None, dh0.  Allocates the scratch (h
+    checkpoints, the clusters' partials of dBc and dC, dA's batch
+    partials).  The caller has validated the arguments.  Raises if a
+    launch is refused."""
+    lib = library_ssm_bwd()
+    B, S, di = dt.shape
+    st = A.shape[-1]
+    lay = ssm_layout(di, st)
+    dev = dt.device
+    hck = torch.empty((B, -(-S // SSM_CHUNK), di, st), dtype=torch.float32,
+                      device=dev)
+    part = torch.empty((B, S, lay["clusters"], 2 * lay["st_pad"]),
+                       dtype=torch.float32, device=dev)
+    dA_part = torch.empty((B, di, st), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mamba_ssm_bwd(
+            dt.data_ptr(), A.data_ptr(), u.data_ptr(), Bc.data_ptr(),
+            C.data_ptr(), h0.data_ptr(), _ptr(dy), _ptr(dh_last),
+            ddt.data_ptr(), du.data_ptr(), dBc.data_ptr(), dC.data_ptr(),
+            dA.data_ptr(), _ptr(dh0), hck.data_ptr(), part.data_ptr(),
+            dA_part.data_ptr(), B, S, di, st, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_ssm_bwd launch failed: CUDA error {err} "
+                           f"(B={B}, S={S}, di={di}, st={st})")
+
+
+def decay_cuda(dt: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """The fused backward's own exp(dt * A), (..., di, st) f32, for a
+    check against ``torch.exp(dt[..., None] * A)`` on the card."""
+    di, st = A.shape
+    a = torch.empty((*dt.shape, st), dtype=torch.float32, device=dt.device)
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream(dt.device).cuda_stream
+        err = library_ssm_bwd().mamba_ssm_bwd_decay(
+            dt.data_ptr(), A.data_ptr(), a.data_ptr(), dt.numel() // di, di,
+            st, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_ssm_bwd_decay launch failed: CUDA error "
+                           f"{err}")
+    return a

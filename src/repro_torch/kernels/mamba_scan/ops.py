@@ -7,9 +7,16 @@ reach.  ``LAUNCHES`` counts kernel launches and nothing else.
 
 :func:`scan_backward` is the same for the backward (K3-bwd), counted in
 ``BWD_LAUNCHES``.  :class:`Scan` joins the two as a
-``torch.autograd.Function``; it is what the model calls.  Under
-``no_grad`` or ``inference_mode`` its ``apply`` runs the forward alone and
-records nothing, so inference launches exactly the forward kernel.
+``torch.autograd.Function``: the gradient of the op-level scan.
+
+:func:`ssm_backward` is the fused backward of the scan and its input
+tail ``a = exp(dt A)``, ``b = u Bc``, counted in ``SSM_BWD_LAUNCHES``.
+:class:`SelectiveScan` takes (dt, A, u, Bc, C, h0), builds a and b, runs
+:func:`scan` and drops them; its backward is :func:`ssm_backward`, so no
+(B, S, d_inner, d_state) tensor is kept for or made by the backward.  It
+is what the model calls.  Under ``no_grad`` or ``inference_mode`` either
+Function's ``apply`` runs the forward alone and records nothing, so
+inference launches exactly the forward kernel.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from . import ref
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+SSM_BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 
@@ -158,3 +166,81 @@ class Scan(torch.autograd.Function):
         return scan_backward(*ctx.saved_tensors, dy, dh_last,
                              need=ctx.needs_input_grad)
 
+
+def ssm_backward(dt: torch.Tensor, A: torch.Tensor, u: torch.Tensor,
+                 Bc: torch.Tensor, C: torch.Tensor, h0: torch.Tensor,
+                 dy: Optional[torch.Tensor], dh_last: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The backward of :func:`scan` on a = exp(dt * A), b = u * Bc, for
+    dt, u (B,S,di), A (di,st), Bc, C (B,S,st), h0 (B,di,st), all f32, and
+    cotangents dy (B,S,di), dh_last (B,di,st), either None for zero ->
+    (ddt, dA, du, dBc, dC, dh0), f32."""
+    if dt.device.type == "cpu":
+        return ref.ssm_backward(dt, A, u, Bc, C, h0, dy, dh_last)
+    if dt.device.type != "cuda":
+        raise ValueError(f"ssm_backward: unsupported device {dt.device}")
+    if dt.ndim != 3 or A.ndim != 2:
+        raise ValueError(f"ssm_backward: dt {tuple(dt.shape)} and A "
+                         f"{tuple(A.shape)}, want (B, S, di) and (di, st)")
+    B, S, di = dt.shape
+    st = A.shape[1]
+    want = {"A": (di, st), "u": (B, S, di), "Bc": (B, S, st),
+            "C": (B, S, st), "h0": (B, di, st), "dy": (B, S, di),
+            "dh_last": (B, di, st)}
+    named = (("A", A), ("u", u), ("Bc", Bc), ("C", C), ("h0", h0),
+             ("dy", dy), ("dh_last", dh_last))
+    for name, t in named:
+        if t is None:
+            continue
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"ssm_backward: {name} has shape "
+                             f"{tuple(t.shape)}, want {want[name]}")
+        if t.device != dt.device:
+            raise ValueError(f"ssm_backward: inputs on {t.device} and "
+                             f"{dt.device}")
+    for t in (dt, A, u, Bc, C, h0):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssm_backward: inputs must be f32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("ssm_backward: inputs must be contiguous")
+    if not 1 <= st <= kernel.MAX_ST:
+        raise ValueError(f"ssm_backward: st={st} outside 1..{kernel.MAX_ST}")
+    if min(B, S, di) < 1 or B > 65535 or max(S, di) >= 2**31:
+        raise ValueError(f"ssm_backward: shape {(B, S, di, st)} out of range")
+    # the cotangents arrive from autograd in any layout: f32, contiguous
+    dy = None if dy is None else dy.float().contiguous()
+    dh_last = None if dh_last is None else dh_last.float().contiguous()
+    ddt, du = torch.empty_like(dt), torch.empty_like(u)
+    dBc, dC = torch.empty_like(Bc), torch.empty_like(C)
+    dA, dh0 = torch.empty_like(A), torch.empty_like(h0)
+    kernel.ssm_backward_cuda(dt, A, u, Bc, C, h0, dy, dh_last, ddt, du, dBc,
+                             dC, dA, dh0)
+    global SSM_BWD_LAUNCHES
+    with _count_lock:
+        SSM_BWD_LAUNCHES += 1
+    return ddt, dA, du, dBc, dC, dh0
+
+
+class SelectiveScan(torch.autograd.Function):
+    """:func:`scan` on a = exp(dt * A), b = u * Bc, with
+    :func:`ssm_backward` as its gradient.  The forward builds a and b with
+    the model's own ops (so its outputs are those of ``Scan.apply(a, b,
+    C, h0)`` bit for bit), drops them after K3 and saves only dt, A, u,
+    Bc, C and h0."""
+
+    @staticmethod
+    def forward(ctx, dt, A, u, Bc, C, h0):
+        ctx.set_materialize_grads(False)
+        a = torch.exp_(dt[..., None] * A)                   # (B,S,di,st)
+        b = u[..., None] * Bc[:, :, None, :]
+        ctx.save_for_backward(dt, A, u, Bc, C, h0)
+        return scan(a, b, C, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        if dy is None and dh_last is None:
+            return (None,) * 6
+        grads = ssm_backward(*ctx.saved_tensors, dy, dh_last)
+        return tuple(g if n else None
+                     for g, n in zip(grads, ctx.needs_input_grad))

@@ -11,12 +11,17 @@ kernel's plain version.  K3 returns ``y`` and ``h_last`` and never
 materializes the (B, S, d_inner, d_state) states.  Decode is a one-step
 recurrence in plain PyTorch, as in the reference.
 
-The reference differentiates its own scan with JAX autodiff.  Here the
-scan's gradient is K3's backward (K3-bwd): ``mamba_forward`` calls
-:class:`~repro_torch.kernels.mamba_scan.ops.Scan`, an autograd Function
-whose backward launches K3-bwd on a CUDA tensor and runs its plain
-version on a CPU one.  Under ``no_grad`` or ``inference_mode`` it runs
-the forward alone and records nothing, so serving launches K3 alone.
+The reference differentiates ``_ssm_inputs`` and its own scan with JAX
+autodiff.  Here ``mamba_forward`` hands the scan's inputs before the
+tail, (dt, A, u = dt x1, Bc, C), to
+:class:`~repro_torch.kernels.mamba_scan.ops.SelectiveScan`, an autograd
+Function that builds ``a = exp(dt A)`` and ``b = u Bc`` with the same ops
+as ``_ssm_inputs``, runs K3 and drops them.  Its backward is the fused
+backward of the scan and that tail (``ops.ssm_backward``): the
+hand-written Hopper kernel on a CUDA tensor, its plain version on a CPU
+one; it neither keeps nor makes a (B, S, d_inner, d_state) tensor.  Under
+``no_grad`` or ``inference_mode`` it runs the forward alone and records
+nothing, so serving launches K3 alone.  Decode keeps ``_ssm_inputs``.
 """
 from __future__ import annotations
 
@@ -54,19 +59,27 @@ def init_mamba(cfg, gen: torch.Generator, lead: Tuple = ()) -> Params:
     }
 
 
-def _ssm_inputs(cfg, p: Params, x1: torch.Tensor):
-    """x1: (B, S, di) post-conv -> per-step decay a and input b (f32,
-    (B, S, di, st)), readout C ((B, S, st) in x1's dtype)."""
+def _ssm_params(cfg, p: Params, x1: torch.Tensor):
+    """x1: (B, S, di) post-conv -> the scan's inputs before the tail: dt
+    (B, S, di) f32 after the softplus, A (di, st) f32, u = dt * x1 (f32),
+    and B, C ((B, S, st) in x1's dtype)."""
     st = cfg.ssm_d_state
     dr = cfg.ssm_dt_rank_
     proj = x1 @ p["x_proj"]
     dt_raw, Bc, Cc = torch.split(proj, [dr, st, st], dim=-1)
     dt = F.softplus((dt_raw @ p["dt_proj"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])  # (di, st)
+    return dt, A, dt * x1.float(), Bc, Cc
+
+
+def _ssm_inputs(cfg, p: Params, x1: torch.Tensor):
+    """x1: (B, S, di) post-conv -> per-step decay a and input b (f32,
+    (B, S, di, st)), readout C ((B, S, st) in x1's dtype)."""
+    dt, A, u, Bc, Cc = _ssm_params(cfg, p, x1)
     # in place on the product: exp's backward reads its own output, the
     # product's backward its inputs, so autograd allows it
     a = torch.exp_(dt[..., None] * A)                                # (B,S,di,st)
-    b = (dt * x1.float())[..., None] * Bc.float()[:, :, None, :]
+    b = u[..., None] * Bc.float()[:, :, None, :]
     return a, b, Cc
 
 
@@ -84,7 +97,7 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba (train/prefill). Returns (out, decode cache).
     The scan is one K3 call (:mod:`repro_torch.kernels.mamba_scan`), and
-    one K3-bwd call in backward."""
+    one call of the fused backward of the scan and its tail in backward."""
     B, S, _ = x.shape
     di, st, dc = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.ssm_d_conv
     xz = x @ p["in_proj"]
@@ -92,14 +105,14 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor,
     x1_pre = x1
     x1 = F.silu(_causal_conv(p, x1).float()).to(x.dtype)
 
-    a, b, Cc = _ssm_inputs(cfg, p, x1)
+    dt, A, u, Bc, Cc = _ssm_params(cfg, p, x1)
     chunk = min(SCAN_CHUNK, S)
     assert S % chunk == 0, (S, chunk)
     h0 = torch.zeros((B, di, st), dtype=torch.float32, device=x.device)
-    y, h_last = scan_ops.Scan.apply(a, b, Cc.float().contiguous(), h0)
-    # (B, S, di, st) f32 each: gone before the next layer, unless the
-    # scan's backward holds them
-    del a, b
+    # a and b, (B, S, di, st) f32 each, live only inside the Function's
+    # forward
+    y, h_last = scan_ops.SelectiveScan.apply(
+        dt, A, u, Bc.float().contiguous(), Cc.float().contiguous(), h0)
 
     y = y + p["D"] * x1.float()
     y = (y * F.silu(z.float())).to(x.dtype)

@@ -166,7 +166,9 @@ def test_wrapper_cpu_path_counts_no_launch():
 
 def test_mamba_layer_gradient_goes_through_the_function(monkeypatch):
     """``mamba_forward`` routes its scan through the Function: a spy on
-    the wrapper's backward sees one call per backward pass."""
+    the fused backward's wrapper (``ssm_backward``, the gradient of the
+    scan and its input tail) sees one call per backward pass, and the
+    op-level scan's backward none."""
     from repro_torch import configs
     from repro_torch.models.layers import mamba
     cfg = configs.get_smoke("falcon-mamba-7b")
@@ -174,13 +176,15 @@ def test_mamba_layer_gradient_goes_through_the_function(monkeypatch):
     p = {k: v.requires_grad_(True) for k, v in
          mamba.init_mamba(cfg, gen).items()}
     x = torch.randn(2, 16, cfg.d_model, generator=gen)
-    calls = []
-    real = tops.scan_backward
-    monkeypatch.setattr(tops, "scan_backward",
+    calls, op_calls = [], []
+    real, real_op = tops.ssm_backward, tops.scan_backward
+    monkeypatch.setattr(tops, "ssm_backward",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(tops, "scan_backward",
+                        lambda *a, **k: op_calls.append(1) or real_op(*a, **k))
     out, _ = mamba.mamba_forward(cfg, p, x)
     out.sum().backward()
-    assert calls == [1]
+    assert calls == [1] and op_calls == []
     for k in ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
               "A_log"):
         assert p[k].grad is not None and bool(p[k].grad.abs().sum() > 0), k
