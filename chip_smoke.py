@@ -86,14 +86,26 @@ Phases (any failure raises and the script exits non-zero):
      full-width f32 Hymba-1.5B Mamba layer's gradients on the card
      against the CPU; (c) Hymba-1.5B at full width and depth trains 8
      steps of 8 x 2048 in 2 microbatches through ``launch.train`` (a gang
-     CU on a Pilot): finite, falling loss, K3 128, the fused backward 64
-     and K3-bwd 0 launches a step, one profiled step, a blocking save of
-     the whole state and a restore into a fresh Trainer (bitwise), and
-     resume exactness at 4 layers (rel 1e-3); (d) the
-     paper's simulate -> analyze -> train DAG
+     CU on a Pilot), on the sharding layer's plan path: a 1 x 1
+     ``DeviceMesh`` over NCCL world size 1, params and moments DTensors
+     placed by ``sharding.Plan``, K3 and the fused backward reached
+     through each layer's local shard: finite, falling loss, K3 128, the
+     fused backward 64 and K3-bwd 0 launches a step, one profiled step, a
+     blocking save of the whole (DTensor) state and a restore into a
+     fresh Trainer (bitwise), and resume exactness at 4 layers (rel
+     1e-3); (d) the paper's simulate -> analyze -> train DAG
      (``examples/torch_hybrid_pipeline.py``) at Hymba-1.5B width on
      pilots ``hpc`` and ``ana``, K1 in every analyze, ending "pipeline
-     complete.".
+     complete.";
+ 14. the sharding layer at one rank: (a) the plain ``make_train_step``
+     on plain tensors from 13c's initial state and batches, its first
+     PLAIN_STEPS steps' loss and grad norm against 13c's (rel 1e-4;
+     whether bit for bit, and if not the first op that differs), ms a
+     step, tokens/s and peak memory beside 13c's; (b) one
+     Qwen2-MoE-A2.7B MoE layer at full width in bf16 (1 x 2048 tokens)
+     on the 1 x 1 mesh: the expert-parallel combine against the GSPMD
+     combine, forward and the layer's gradients (2e-2 of max |want|;
+     whether bit for bit), each timed.
 
 Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
 it and reads them after.  Phase 11b sets K3's count to 0 before it and
@@ -101,7 +113,8 @@ reads it after (``launches_model``), and so does phase 12
 (``launches_engine``).  Phases 13c and 13d set K3's, the fused
 backward's and K3-bwd's counts to 0 before them and read them after
 (``launches_train``, ``launches_hybrid``; the fused backward's and
-K3-bwd's ``launches`` are 13c's: K3-bwd is off the model path, 0).
+K3-bwd's ``launches`` are 13c's: K3-bwd is off the model path, 0), and
+phase 14a around its plain steps (``launches_plain``).
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -271,6 +284,10 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 2, 1e-3
 RESUME_LAYERS, RESUME_STEPS, RESUME_BATCH, RESUME_TOL = 4, 8, 2, 1e-3
 # 13d: the hybrid pipeline at Hymba-1.5B full width
 HYBRID_BATCH, HYBRID_SEQ, HYBRID_ROUNDS, HYBRID_STEPS = 2, 512, 3, 2
+# 14a: the plain step's first steps against 13c's plan path
+PLAIN_STEPS, PLAN_TOL = 4, 1e-4
+# 14b: one Qwen2-MoE-A2.7B MoE layer, 1 x 2048 tokens in bf16
+EP_ARCH, EP_TOKENS, EP_TOL, EP_REPS = "qwen2-moe-a2.7b", 2048, 2e-2, 5
 # phase 8's DCN costs per byte (benchmarks/bench_session_placement.py)
 SESSION_DCN_COSTS = (0.0, 1e-9, 1e-7, 1e-5, 1e-3, 1.0)
 SESSION_SEED = 80      # simulate's seed is this plus the scenario's index
@@ -2200,12 +2217,21 @@ def _state_nbytes(state) -> int:
 
 
 def _states_equal(torch, a, b) -> bool:
-    """Same tree, and every leaf the same dtype, shape and bits."""
+    """Same tree, and every leaf the same dtype, shape, placements (for
+    DTensors) and bits."""
+    from repro_torch.sharding import parallel
     from repro_torch.util import tree_paths
     ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
     def bits(t):
-        return t.contiguous().view(ints[t.element_size()])
+        return parallel.local(t).contiguous().view(ints[t.element_size()])
+
+    def where(t):
+        return getattr(t, "placements", None)
+
+    if any(where(x) != where(y) for (_, x), (_, y) in zip(tree_paths(a),
+                                                          tree_paths(b))):
+        return False
 
     pa, pb = list(tree_paths(a)), list(tree_paths(b))
     return [k for k, _ in pa] == [k for k, _ in pb] and all(
@@ -2324,8 +2350,11 @@ def phase_train(torch, dev, card: str) -> dict:
           f"({cfg.n_layers} layers, {cfg.dtype} params, f32 moments, remat) "
           f"through launch.train: batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, "
           f"{TRAIN_MICROBATCHES} microbatches, {TRAIN_STEPS} steps")
+    import gc
+    gc.collect()       # an earlier phase's cycles may still hold tensors
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    base_gb = torch.cuda.memory_allocated(dev) / 1e9
     # phase 13c's window
     ms_ops.LAUNCHES = ms_ops.SSM_BWD_LAUNCHES = ms_ops.BWD_LAUNCHES = 0
     out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -2336,6 +2365,23 @@ def phase_train(torch, dev, card: str) -> dict:
     launches = (ms_ops.LAUNCHES, ms_ops.SSM_BWD_LAUNCHES, ms_ops.BWD_LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     hist, trainer = out["history"], out["trainer"]
+    from repro_torch.sharding import parallel
+    from repro_torch.util import tree_leaves
+    mesh = trainer.dmesh
+    check(mesh is not None and tuple(mesh.shape) == (1, 1)
+          and parallel.is_sharded(trainer.state["params"])
+          and all(parallel.is_sharded(trainer.state["opt"][k])
+                  for k in ("m", "v")),
+          "phase 13c did not train on the plan path (DTensor state on a "
+          "1 x 1 DeviceMesh)")
+    import torch.distributed as dist
+    print(f"  plan path: DeviceMesh {tuple(mesh.mesh_dim_names)} "
+          f"{tuple(mesh.shape)} on {mesh.device_type}, backend "
+          f"{dist.get_backend(mesh.get_group(0))}, world size "
+          f"{dist.get_world_size()}; "
+          f"{len(tree_leaves(trainer.state['params']))} param leaves as "
+          f"DTensors, plan {trainer.plan.mesh_axes} dp "
+          f"{trainer.plan.dp_axes}")
     per_step = (2 * n_ssm * TRAIN_MICROBATCHES, n_ssm * TRAIN_MICROBATCHES, 0)
     check(len(hist) == TRAIN_STEPS, f"trained {len(hist)} steps")
     check(launches == tuple(TRAIN_STEPS * n for n in per_step),
@@ -2353,7 +2399,8 @@ def phase_train(torch, dev, card: str) -> dict:
     print(f"  {step_ms:.1f} ms a step (median of steps 1-{TRAIN_STEPS - 1}; "
           f"step 0 {1e3 * hist[0]['step_s']:.1f} ms), "
           f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
-          f"{peak_gb:.2f} GB; K3 {per_step[0]}, the fused backward "
+          f"{peak_gb:.2f} GB ({base_gb:.2f} GB held before); K3 "
+          f"{per_step[0]}, the fused backward "
           f"{per_step[1]} and K3-bwd {per_step[2]} launches a step [{card}]")
     prof = _device_profile(torch, lambda: trainer.run(
         TRAIN_STEPS + 1, log_every=0))
@@ -2376,9 +2423,227 @@ def phase_train(torch, dev, card: str) -> dict:
             "step_ms": step_ms, "step_ms_all": [1e3 * h["step_s"]
                                                 for h in hist],
             "tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
+            "memory_before_gb": base_gb,
             "k3_launches": launches[0], "ssm_bwd_launches": launches[1],
             "k3_bwd_launches": launches[2], "profile": prof,
             "checkpoint": ckpt, "resume": resume}
+
+
+def _op_trace(torch, fn) -> list:
+    """(op, checksum) of every op `fn` dispatches that makes a new
+    tensor (views and copies of metadata skipped), DTensor outputs read
+    through their local tensor."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.sharding import parallel
+    skip = ("view", "alias", "detach", "select", "slice", "expand",
+            "_to_copy", "t.default", "transpose", "permute", "unsqueeze",
+            "squeeze", "split", "chunk", "as_strided", "_unsafe_view")
+    out = []
+
+    class Trace(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            name = str(func)
+            if not any(k in name for k in skip):
+                for r in (res if isinstance(res, (tuple, list)) else (res,)):
+                    if isinstance(r, torch.Tensor) and r.is_floating_point():
+                        loc = parallel.local(r)
+                        out.append((name, float(loc.double().sum())))
+            return res
+
+    with Trace():
+        fn()
+    return out
+
+
+def phase_plan_vs_plain(torch, dev, card: str, training: dict) -> dict:
+    """14a. The plain step (``make_train_step`` on plain tensors, no
+    plan) from 13c's initial state on 13c's batches for PLAIN_STEPS
+    steps: each step's loss and grad norm against 13c's plan path (rel
+    PLAN_TOL), whether bit for bit (and if not, the first op of the
+    first microbatch's loss whose output differs), ms a step, tokens/s
+    and peak memory beside 13c's."""
+    from repro_torch import configs
+    from repro_torch.core import DeviceGrid
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.sharding import Plan, parallel
+    from repro_torch.train.step import make_train_state, make_train_step
+    from repro_torch.launch import spmd
+    cfg = configs.get("hymba-1.5b")
+    n_ssm = sum(s.n_layers for s in tf.build_segments(cfg) if s.ssm)
+    print(f"phase 14a: the plain step (no plan, plain tensors) against "
+          f"13c's plan path, {PLAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} in {TRAIN_MICROBATCHES} microbatches")
+    import gc
+    gc.collect()       # 13d's trainer is freed only by the cycle collector
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_gb = torch.cuda.memory_allocated(dev) / 1e9
+
+    def init_state():
+        gen = torch.Generator(device=dev).manual_seed(0)  # Trainer's seed
+        return make_train_state(cfg, tf.init_params(cfg, gen, device=dev))
+
+    state = init_state()
+    step = make_train_step(
+        cfg, hyper=adamw.Hyper(lr=TRAIN_LR),
+        n_microbatches=TRAIN_MICROBATCHES,
+        lr_schedule=lambda s: schedule.warmup_cosine(
+            s, warmup=TRAIN_WARMUP, total=TRAIN_STEPS))
+    pipe = TokenPipeline(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0,
+                         device=dev)
+    hist = []
+    ms_ops.LAUNCHES = ms_ops.SSM_BWD_LAUNCHES = ms_ops.BWD_LAUNCHES = 0
+    for i in range(PLAIN_STEPS):
+        batch = pipe.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        m["step_s"] = time.perf_counter() - t0
+        hist.append(m)
+    launches = (ms_ops.LAUNCHES, ms_ops.SSM_BWD_LAUNCHES, ms_ops.BWD_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    per_step = (2 * n_ssm * TRAIN_MICROBATCHES, n_ssm * TRAIN_MICROBATCHES, 0)
+    check(launches == tuple(PLAIN_STEPS * n for n in per_step),
+          f"phase 14a launched K3, the fused backward and K3-bwd "
+          f"{launches} times, want {per_step} a step")
+    del state
+    torch.cuda.empty_cache()
+    rows, bitwise = [], True
+    for i, m in enumerate(hist):
+        plan_loss = training["losses"][i]
+        plan_gn = training["grad_norms"][i]
+        rel = max(abs(m["loss"] - plan_loss) / abs(plan_loss),
+                  abs(m["grad_norm"] - plan_gn) / abs(plan_gn))
+        same = m["loss"] == plan_loss and m["grad_norm"] == plan_gn
+        bitwise = bitwise and same
+        rows.append({"step": i, "plain_loss": m["loss"],
+                     "plan_loss": plan_loss, "plain_grad_norm": m["grad_norm"],
+                     "plan_grad_norm": plan_gn, "max_rel": rel,
+                     "bitwise": same})
+        check(rel <= PLAN_TOL, f"phase 14a step {i}: plain loss/grad norm "
+              f"{m['loss']}/{m['grad_norm']} vs plan {plan_loss}/{plan_gn}: "
+              f"rel {rel:.3e} over {PLAN_TOL}")
+    first_diff = None
+    if not bitwise:
+        # the first microbatch's loss, op by op, on both paths
+        mb = {k: v[:TRAIN_BATCH // TRAIN_MICROBATCHES]
+              for k, v in pipe.batch_at(0).items()}
+        plain = init_state()["params"]
+        mesh = spmd.local_mesh(DeviceGrid([dev]))
+        plan = Plan.for_mesh(mesh)
+        placed = parallel.distribute_tree(plain, plan.param_specs(plain),
+                                          mesh)
+        with torch.no_grad():
+            a = _op_trace(torch, lambda: tf.loss_fn(cfg, plain, mb,
+                                                    remat=False))
+            b = _op_trace(torch, lambda: tf.loss_fn(
+                cfg, placed, mb, remat=False, act_spec=plan.act_spec(),
+                moe_groups=plan.dp_size))
+        del plain, placed
+        torch.cuda.empty_cache()
+        for j, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                first_diff = {"index": j, "plain": x, "plan": y}
+                break
+        if first_diff is None and len(a) != len(b):
+            first_diff = {"index": min(len(a), len(b)),
+                          "plain_ops": len(a), "plan_ops": len(b)}
+    step_ms = 1e3 * statistics.median(h["step_s"] for h in hist[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    worst = max(r["max_rel"] for r in rows)
+    print(f"  per step plain vs plan: "
+          + "; ".join(f"{r['plain_loss']:.6f}/{r['plan_loss']:.6f} gnorm "
+                      f"{r['plain_grad_norm']:.6f}/{r['plan_grad_norm']:.6f}"
+                      for r in rows))
+    print(f"  max rel diff {worst:.3e} (tol {PLAN_TOL}); bit for bit: "
+          f"{bitwise}" + ("" if first_diff is None else
+                          f"; first differing op {first_diff}"))
+    print(f"  plain step {step_ms:.1f} ms a step (median of steps 1-"
+          f"{PLAIN_STEPS - 1}), {tokens / step_ms * 1e3:.0f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB ({base_gb:.2f} GB held before); plan "
+          f"path (13c) {training['step_ms']:.1f} ms a step, "
+          f"{training['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{training['peak_memory_gb']:.2f} GB "
+          f"({training['memory_before_gb']:.2f} GB held before); plan / plain "
+          f"{training['step_ms'] / step_ms:.4f} [{card}]")
+    return {"steps": rows, "bitwise": bitwise, "first_diff": first_diff,
+            "max_rel": worst, "plain_step_ms": step_ms,
+            "plain_step_ms_all": [1e3 * h["step_s"] for h in hist],
+            "plain_tokens_per_s": tokens / step_ms * 1e3,
+            "plain_peak_memory_gb": peak_gb, "plain_memory_before_gb": base_gb,
+            "plan_step_ms": training["step_ms"],
+            "plan_tokens_per_s": training["tokens_per_s"],
+            "plan_peak_memory_gb": training["peak_memory_gb"],
+            "launches_plain": launches}
+
+
+def phase_ep_combine(torch, dev, card: str) -> dict:
+    """14b. One Qwen2-MoE-A2.7B MoE layer at full width in bf16 on the
+    1 x 1 mesh: the expert-parallel combine (``ep_axis="model"``)
+    against the GSPMD combine, forward and the layer's gradients (each
+    within EP_TOL of its max |want|; whether bit for bit), each timed
+    (forward + backward, CUDA events)."""
+    from repro_torch import configs
+    from repro_torch.core import DeviceGrid
+    from repro_torch.launch import spmd
+    from repro_torch.models.layers import moe
+    from repro_torch.sharding import parallel
+    cfg = configs.get(EP_ARCH)
+    print(f"phase 14b: {cfg.name} MoE layer (d {cfg.d_model}, "
+          f"{cfg.moe_n_routed_padded} experts of {cfg.moe_d_ff}, top "
+          f"{cfg.moe_top_k}, {cfg.moe_n_shared} shared), 1 x {EP_TOKENS} "
+          "tokens in bf16 on the 1 x 1 mesh: EP combine vs GSPMD combine")
+    gen = torch.Generator(device=dev).manual_seed(41)
+    p = moe.init_moe(cfg, gen)
+    x = (torch.randn(1, EP_TOKENS, cfg.d_model, generator=gen, device=dev)
+         .to(cfg.param_dtype))
+    cot = torch.randn(1, EP_TOKENS, cfg.d_model, generator=gen, device=dev)
+    ctx = parallel.Ctx(spmd.local_mesh(DeviceGrid([dev])), ())
+    calls = []
+    real = moe._combine_ep
+    moe._combine_ep = lambda *a: calls.append(1) or real(*a)
+
+    def run(ep_axis):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in p.items() if k != "shared"}
+        xi = x.detach().requires_grad_(True)
+        out, aux = moe.moe_forward(cfg, {**p, **leaves}, xi, ep_axis=ep_axis,
+                                   ctx=ctx)
+        grads = torch.autograd.grad((out.float() * cot).sum() + aux,
+                                    [xi, *leaves.values()])
+        return [out, aux, *grads]
+
+    try:
+        want = run(None)
+        got = run("model")
+        check(calls == [1], f"phase 14b: EP combine ran {len(calls)} times")
+        ms = {k: cuda_ms(torch, lambda k=k: run(k), reps=EP_REPS)
+              for k in (None, "model")}
+    finally:
+        moe._combine_ep = real
+    names = ["out", "aux", "dx", *[f"d{k}" for k in p if k != "shared"]]
+    errs, bitwise = {}, True
+    for name, g, w in zip(names, got, want):
+        g, w = g.detach(), w.detach()
+        scale = max(float(w.float().abs().max()), 1e-30)
+        errs[name] = float((g.float() - w.float()).abs().max()) / scale
+        bitwise = bitwise and torch.equal(g, w)
+        check(errs[name] <= EP_TOL, f"phase 14b {name}: rel {errs[name]:.3e}"
+              f" over {EP_TOL}")
+    print(f"  EP vs GSPMD max |err| / max |want|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {EP_TOL}); bit for bit: {bitwise}")
+    print(f"  forward + backward: GSPMD {ms[None]:.3f} ms, EP "
+          f"{ms['model']:.3f} ms (mean of {EP_REPS} after 3 warm-ups) "
+          f"[{card}]")
+    return {"errors": errs, "bitwise": bitwise, "gspmd_ms": ms[None],
+            "ep_ms": ms["model"]}
 
 
 def phase_hybrid(torch, dev) -> dict:
@@ -2688,6 +2953,11 @@ def run(torch) -> int:
     hybrid = phase_hybrid(torch, dev)
     train_s = time.perf_counter() - t_train
     print(f"  phase 13: {train_s:.3f} s wall")
+    t_plan = time.perf_counter()
+    plan_vs_plain = phase_plan_vs_plain(torch, dev, card, training)
+    ep_combine = phase_ep_combine(torch, dev, card)
+    plan_s = time.perf_counter() - t_plan
+    print(f"  phase 14: {plan_s:.3f} s wall")
     t_bytes = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S
     t_ops = sum(s["flops"] for s in shapes) / FP32_FLOP_PER_S
     record = {"kernels": [{
@@ -2731,7 +3001,8 @@ def run(torch) -> int:
         "launches_model": model_launches,
         "launches_engine": engine_launches,
         "launches_train": training["k3_launches"],
-        "launches_hybrid": hybrid["k3_launches"]}, kernel_entry(
+        "launches_hybrid": hybrid["k3_launches"],
+        "launches_plain": plan_vs_plain["launches_plain"][0]}, kernel_entry(
         "mamba_scan_bwd",
         "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu",
         "src/repro/models/layers/mamba.py:62", training["k3_bwd_launches"],
@@ -2743,6 +3014,7 @@ def run(torch) -> int:
         ssm_err, ssm_rows, library=False) | {
         "max_rel_err_sums": ssm_sum_err, "exp_max_ulp": ssm_ulps,
         "launches_hybrid": hybrid["ssm_bwd_launches"],
+        "launches_plain": plan_vs_plain["launches_plain"][1],
         "layer_grad_max_rel_err": layer_grad_err,
         "replaced_ms": sum(r["replaced_ms"] for r in ssm_rows)}],
         "main_path_wall_ms": {f"{n}/{p}": 1e3 * t
@@ -2756,7 +3028,8 @@ def run(torch) -> int:
         "model_parity_max_abs_err": model_errs, "serving": serving,
         "hymba_sublayer_ms": sublayers, "serving_engine": engine,
         "training": training, "hybrid_pipeline": hybrid,
-        "phase_13_s": train_s}
+        "phase_13_s": train_s, "plan_vs_plain": plan_vs_plain,
+        "ep_combine": ep_combine, "phase_14_s": plan_s}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

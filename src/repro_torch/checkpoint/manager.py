@@ -13,10 +13,17 @@ so a checkpoint written by either package restores in the other:
   * atomic publish: write to a tmp dir, then rename;
   * retention: keep the newest ``keep`` checkpoints;
   * ``restore`` reads into the structure and dtypes of a target tree and
-    places every leaf on a given device.
+    places every leaf on a given device;
+  * sharded states: a DTensor leaf is saved as its full array (every
+    rank gathers it with ``full_tensor()``, leaf by leaf, so every rank
+    calls ``save``; rank 0 alone copies it to the host and writes), and
+    ``restore(..., mesh=, plan=)`` places each leaf on the current mesh
+    by the plan as it is read, whatever mesh saved it: a checkpoint of a
+    4-device run restores onto 2 devices, or 1.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -25,6 +32,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.util import Device, resolve_device, tree_paths
 
@@ -49,8 +58,21 @@ def _to_numpy(leaf: Any) -> np.ndarray:
     return t.numpy()
 
 
-def _flatten(tree: Any) -> Dict[str, np.ndarray]:
-    return {_key(path): _to_numpy(leaf) for path, leaf in tree_paths(tree)}
+def _writer() -> bool:
+    """Rank 0 of a process group (or a process without one) writes."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _flatten(tree: Any, host: bool = True) -> Dict[str, np.ndarray]:
+    """Every leaf as a host array, leaf by leaf.  A rank with `host` false
+    only joins the gathers of the DTensor leaves and copies nothing."""
+    out = {}
+    for path, leaf in tree_paths(tree):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()      # a collective: every rank joins
+        if host:
+            out[_key(path)] = _to_numpy(leaf)
+    return out
 
 
 def _from_numpy(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
@@ -85,7 +107,8 @@ class CheckpointManager:
 
     # ---------------------------------------------------------------- save
     def save(self, state: Any, step: int, *, blocking: bool = False) -> None:
-        arrays = _flatten(state)          # device->host on caller thread
+        writer = _writer()
+        arrays = _flatten(state, writer)  # device->host on caller thread
         manifest = {"step": int(step),
                     "leaves": {k: [list(v.shape), str(v.dtype)]
                                for k, v in arrays.items()}}
@@ -103,6 +126,8 @@ class CheckpointManager:
             self._gc()
 
         self.wait()                       # one in-flight save at a time
+        if not writer:
+            return
         if self.async_save and not blocking:
             self._pending = threading.Thread(target=_write, daemon=True)
             self._pending.start()
@@ -130,16 +155,28 @@ class CheckpointManager:
         return max(steps) if steps else None
 
     def restore(self, target: Any, step: Optional[int] = None,
-                device: Device = "cuda") -> Any:
+                device: Device = "cuda", mesh=None, plan=None) -> Any:
         """Restore into the structure and dtypes of `target` (a tree whose
         leaves have ``.dtype``: tensors, fake or meta tensors), every leaf
-        placed on `device` (the card unless the caller asks for the CPU)."""
+        placed on `device` (the card unless the caller asks for the CPU);
+        with `mesh` and `plan`, every leaf of more than 0 dims becomes a
+        DTensor on `mesh` placed by ``plan.param_specs``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         self.wait()
         path = os.path.join(self.dir, f"step-{step:08d}")
         device = resolve_device(device)
+        if mesh is not None:
+            from repro_torch.sharding import parallel
+            specs = plan.param_specs(target)
+
+        def leaf_fn(pth, leaf):
+            t = _from_numpy(data[_key(pth)], leaf.dtype).to(device)
+            if mesh is None or t.ndim == 0:
+                return t
+            spec = functools.reduce(lambda sub, k: sub[k], pth, specs)
+            return parallel.distribute(t, mesh, spec)   # one leaf at a time
+
         with np.load(os.path.join(path, "leaves.npz")) as data:
-            return _rebuild(target, (), lambda pth, leaf: _from_numpy(
-                data[_key(pth)], leaf.dtype).to(device))
+            return _rebuild(target, (), leaf_fn)

@@ -33,7 +33,11 @@ def to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """The host copy of `t`; bfloat16 comes back as ``ml_dtypes.bfloat16``."""
+    """The host copy of `t` (a DTensor's full tensor); bfloat16 comes
+    back as ``ml_dtypes.bfloat16``."""
+    from torch.distributed.tensor import DTensor   # kept off the core's import
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes

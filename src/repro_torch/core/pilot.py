@@ -105,7 +105,10 @@ class Pilot:
     # -------------------------------------------------------------- meshes
     def mesh(self, devices: Optional[Sequence] = None, tp: Optional[int] = None,
              axis_names=("data", "model")) -> DeviceGrid:
-        """(dp, tp) grid over `devices` (default: the whole slice)."""
+        """(dp, tp) grid over `devices` (default: the whole slice).  A
+        gang CU gets its own devices' grid as ``mesh=``;
+        ``launch.spmd.run(grid, fn)`` runs `fn` once per device of it
+        (one process per device) on the grid's ``DeviceMesh``."""
         devs = list(devices if devices is not None else self.devices)
         tp = tp or self.desc.tp
         tp = min(tp, len(devs))

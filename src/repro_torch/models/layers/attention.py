@@ -158,20 +158,34 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                 causal: bool = True, window: int = 0,
                 kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                k_valid: Optional[torch.Tensor] = None,
+                k_valid: Optional[torch.Tensor] = None, tp=None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention (train/prefill). Returns (out, kv-cache).
 
     kv_override supplies (k, v) already projected — used by cross-attention.
     k_valid is an (S,) bool key-validity mask: False keys (e.g. left-pad
     slots in bucketed serving prefill) are never attended.
+
+    With `tp` (a model-axis group) ``wq`` and ``wo`` are this rank's
+    heads; ``wk``/``wv`` are its kv heads when the model axis divides
+    them, else whole (the plan leaves them unsharded), and the rank takes
+    the kv head of each of its query heads.  One all-reduce sums the
+    heads' outputs.
     """
     S = x.shape[1]
     h = cfg.n_heads
+    wk, wv = p["wk"], p["wv"]
+    if tp is not None:
+        x = tp.copy_in(x)
+        h = h // tp.size
+        if wk.shape[1] == cfg.n_kv_heads:  # wk, wv whole: pick per head
+            group = cfg.n_heads // cfg.n_kv_heads
+            idx = (tp.rank * h + torch.arange(h, device=x.device)) // group
+            wk, wv = wk.index_select(1, idx), wv.index_select(1, idx)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if kv_override is None:
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        k = torch.einsum("bsd,dhk->bshk", x, wk)
+        v = torch.einsum("bsd,dhk->bshk", x, wv)
         cos, sin = rope_angles(positions, cfg.head_dim_, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -187,7 +201,8 @@ def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     else:
         out = sdpa(q, kf, vf, positions, k_pos, causal=causal, window=window,
                    k_valid=k_valid)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return (out if tp is None else tp.reduce_out(out)), cache
 
 
 def _write_slot(buf: torch.Tensor, val: torch.Tensor, slot: torch.Tensor

@@ -73,11 +73,16 @@ def init_mlp(cfg, gen: torch.Generator, d_ff: int, lead: Tuple = ()
     }
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU.  With `tp` (a model-axis group) the weights are this
+    rank's d_ff shard: column- then row-parallel, one all-reduce out."""
+    if tp is not None:
+        x = tp.copy_in(x)
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return out if tp is None else tp.reduce_out(out)
 
 
 # ---------------------------------------------------------------- Embedding
@@ -90,25 +95,61 @@ def init_embedding(cfg, gen: torch.Generator) -> Params:
     return p
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens.long()]
+def embed(p: Params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Token rows of the table.  With `tp` the table is this rank's vocab
+    shard: each rank fills the rows it owns (zeros elsewhere) and one
+    all-reduce adds them, exactly."""
+    table = p["embed"]
+    if tp is None:
+        return table[tokens.long()]
+    n = table.shape[0]
+    idx = tokens.long() - tp.rank * n
+    mine = (idx >= 0) & (idx < n)
+    rows = table[idx.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+    return tp.reduce_out(rows)
 
 
-def unembed(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Logits over the padded vocab; padding ids masked to -1e30."""
+def unembed(cfg, p: Params, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Logits over the padded vocab; padding ids masked to -1e30.  With
+    `tp` the table is this rank's vocab shard and so are the logits."""
     table = p["embed"] if cfg.tie_embeddings else p["lm_head"]
+    if tp is not None:
+        x = tp.copy_in(x)
     logits = (x @ table.T).float()
     if cfg.vocab_padded != cfg.vocab_size:
-        pad_mask = torch.arange(cfg.vocab_padded,
+        lo = 0 if tp is None else tp.rank * table.shape[0]
+        pad_mask = torch.arange(lo, lo + table.shape[0],
                                 device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad_mask, -1e30)
     return logits
 
 
+def sharded_nll(logits: torch.Tensor, labels: torch.Tensor, tp
+                ) -> torch.Tensor:
+    """Per-token NLL from this rank's vocab shard of f32 logits: the
+    log-sum-exp over the whole vocab from a max and a sum all-reduced
+    over the model axis, the gold logit from the rank that owns it (the
+    logits are never gathered)."""
+    n = logits.shape[-1]
+    m = tp.max(logits.max(dim=-1).values)
+    s = tp.reduce_out(torch.exp(logits - m[..., None]).sum(dim=-1))
+    logz = m + torch.log(s)
+    idx = labels.long() - tp.rank * n
+    mine = (idx >= 0) & (idx < n)
+    gold = logits.gather(-1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    gold = tp.reduce_out(torch.where(mine, gold, 0.0))
+    return logz - gold
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL of f32 logits (..., V)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return logz - gold
+
+
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: torch.Tensor) -> torch.Tensor:
     """Mean token-level NLL over masked positions. logits f32 (..., V)."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    nll = (logz - gold) * mask
+    nll = token_nll(logits, labels) * mask
     return nll.sum() / mask.sum().clamp_min(1.0)

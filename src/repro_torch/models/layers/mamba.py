@@ -59,13 +59,18 @@ def init_mamba(cfg, gen: torch.Generator, lead: Tuple = ()) -> Params:
     }
 
 
-def _ssm_params(cfg, p: Params, x1: torch.Tensor):
+def _ssm_params(cfg, p: Params, x1: torch.Tensor, tp=None):
     """x1: (B, S, di) post-conv -> the scan's inputs before the tail: dt
     (B, S, di) f32 after the softplus, A (di, st) f32, u = dt * x1 (f32),
-    and B, C ((B, S, st) in x1's dtype)."""
+    and B, C ((B, S, st) in x1's dtype).  With `tp` x1 and the weights
+    are this rank's di shard: ``x1 @ x_proj`` contracts di, so its
+    partial sums are all-reduced, and its gradient too (every rank's dt,
+    B and C feed its own channels)."""
     st = cfg.ssm_d_state
     dr = cfg.ssm_dt_rank_
     proj = x1 @ p["x_proj"]
+    if tp is not None:
+        proj = tp.all_reduce(proj)
     dt_raw, Bc, Cc = torch.split(proj, [dr, st, st], dim=-1)
     dt = F.softplus((dt_raw @ p["dt_proj"]).float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])  # (di, st)
@@ -93,19 +98,35 @@ def _causal_conv(p: Params, x1: torch.Tensor) -> torch.Tensor:
     return out + p["conv_b"]
 
 
-def mamba_forward(cfg, p: Params, x: torch.Tensor,
+def mamba_forward(cfg, p: Params, x: torch.Tensor, tp=None,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba (train/prefill). Returns (out, decode cache).
     The scan is one K3 call (:mod:`repro_torch.kernels.mamba_scan`), and
-    one call of the fused backward of the scan and its tail in backward."""
+    one call of the fused backward of the scan and its tail in backward.
+
+    With `tp` (a model-axis group) the layer runs on this rank's shard of
+    the SSM channels: ``in_proj`` arrives whole (its x1 and z halves
+    would split unevenly) and the rank takes its di columns of each half;
+    every other weight arrives as its di shard.  The scan is per channel,
+    so K3 and its backward run on the rank's channels with no
+    communication; ``x_proj`` and ``out_proj`` each need one all-reduce."""
     B, S, _ = x.shape
     di, st, dc = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.ssm_d_conv
-    xz = x @ p["in_proj"]
+    if tp is None:
+        xz = x @ p["in_proj"]
+    else:
+        x = tp.copy_in(x)
+        di = di // tp.size
+        lo = tp.rank * di
+        w = p["in_proj"]
+        half = w.shape[-1] // 2
+        xz = x @ torch.cat([w[:, lo:lo + di], w[:, half + lo:half + lo + di]],
+                           dim=-1)
     x1, z = torch.chunk(xz, 2, dim=-1)
     x1_pre = x1
     x1 = F.silu(_causal_conv(p, x1).float()).to(x.dtype)
 
-    dt, A, u, Bc, Cc = _ssm_params(cfg, p, x1)
+    dt, A, u, Bc, Cc = _ssm_params(cfg, p, x1, tp)
     chunk = min(SCAN_CHUNK, S)
     assert S % chunk == 0, (S, chunk)
     h0 = torch.zeros((B, di, st), dtype=torch.float32, device=x.device)
@@ -117,6 +138,8 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor,
     y = y + p["D"] * x1.float()
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"]
+    if tp is not None:
+        out = tp.reduce_out(out)
 
     if S >= dc - 1:
         conv = x1_pre[:, S - (dc - 1):, :].clone()

@@ -12,8 +12,15 @@ The port of ``repro.models.layers.moe`` on one device:
     out-of-bounds scatter drops them and its gather fills zeros.
   * Shared experts are one wide SwiGLU.
 
-Only the reference's GSPMD combine is ported.  Its expert-parallel
-``shard_map`` path (``ep_axis``) waits for the port's sharding layer.
+Two combines, as in the reference: the GSPMD one (every rank runs every
+expert on its groups) and the expert-parallel one
+(:func:`_combine_ep`, the reference's ``_combine_ep_shardmap``), taken
+when a sharded step's mesh has ``ep_axis`` and that axis divides the
+experts.  On a sharded step (``ctx``, see
+:mod:`repro_torch.sharding.parallel`) each rank routes its own batch
+shard: its groups are its share of ``groups``, and the load-balance
+loss's expert means and counts are summed over the batch axes, so the
+aux loss is the reference's global one.
 """
 from __future__ import annotations
 
@@ -58,9 +65,11 @@ def _topk_iterative(probs: torch.Tensor, k: int
     return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
 
 
-def _route(cfg, p: Params, x2d: torch.Tensor
+def _route(cfg, p: Params, x2d: torch.Tensor, ctx=None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x2d: (T, d) -> (top-k probs (T,k), top-k ids (T,k), aux loss)."""
+    """x2d: (T, d) -> (top-k probs (T,k), top-k ids (T,k), aux loss).
+    With `ctx` the tokens are this rank's batch shard, and the aux loss's
+    statistics are summed over the batch axes."""
     e_pad, e = cfg.moe_n_routed_padded, cfg.moe_n_routed
     logits = x2d.float() @ p["router"]
     if e_pad != e:
@@ -74,6 +83,9 @@ def _route(cfg, p: Params, x2d: torch.Tensor
     ce = torch.zeros(e_pad, device=x2d.device).index_add_(
         0, top_i.reshape(-1).long(),
         torch.ones(top_i.numel(), device=x2d.device))[:e]
+    if ctx is not None and ctx.n_batch > 1:
+        me = ctx.batch_sum(me, grad_sum=True) / ctx.n_batch
+        ce = ctx.batch_sum(ce.detach())
     ce = ce / ce.sum().clamp_min(1.0)
     aux = e * torch.sum(me * ce)
     return top_p.to(x2d.dtype), top_i, aux
@@ -109,34 +121,56 @@ def _expert_block(p, buf, x_dtype):
     return torch.einsum("gecf,efd->gecd", h, p["w_down"])
 
 
+def tp_groups(cfg, ctx, ep_axis: Optional[str]):
+    """(experts' group, shared experts' group) of a sharded step (`ctx`),
+    None where every rank runs all of it: the expert-parallel group when
+    `ep_axis` is in the mesh and divides the experts, and the model group
+    where it divides the shared experts' width.  The one rule for the
+    layer's compute and its weights' uses (``transformer._block_groups``)."""
+    if ctx is None:
+        return None, None
+    shared = (ctx.tp_for(cfg.moe_n_shared * cfg.moe_d_ff)
+              if cfg.moe_n_shared else None)
+    return ctx.ep_group(ep_axis, cfg.moe_n_routed_padded), shared
+
+
 def moe_forward(cfg, p: Params, x: torch.Tensor, *, groups: int = 1,
-                ep_axis: Optional[str] = None
+                ep_axis: Optional[str] = None, ctx=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss). See module docstring."""
-    if ep_axis is not None:
-        raise NotImplementedError(
-            "moe_forward: the expert-parallel path (ep_axis) is not ported; "
-            "it waits for the sharding layer (ROADMAP Queue 1, item 16)")
+    """x: (B, S, d) -> (out, aux_loss). See module docstring.  Without
+    `ctx` (one device, no mesh) ``ep_axis`` names no mesh axis and the
+    GSPMD combine runs, as in the reference without a mesh."""
     B, S, d = x.shape
     T = B * S
     k = cfg.moe_top_k
     e = cfg.moe_n_routed_padded
-    if T % groups != 0:
+    ep, shared_tp = tp_groups(cfg, ctx, ep_axis)
+    n = 1 if ctx is None else ctx.n_batch
+    if (T * n) % groups != 0:
         groups = 1
+    if groups % n:
+        raise NotImplementedError(
+            f"moe_forward: {groups} groups do not split over the {n} batch "
+            "shards")
+    groups //= n                                       # this rank's groups
     tg = T // groups                                   # tokens per group
     cap = int(-(-cfg.moe_capacity_factor * tg * k // e))
     cap = max(8, ((cap + 7) // 8) * 8)
 
     x2d = x.reshape(T, d)
-    top_p, top_i, aux = _route(cfg, p, x2d)
+    top_p, top_i, aux = _route(cfg, p, x2d, ctx)
     xg = x2d.reshape(groups, tg, d)
     dest, keep, sorted_tok, wsort = _dispatch_plan(
         cfg, top_p, top_i, groups, tg, cap, e)
-    combined = _combine_gspmd(cfg, p, xg, dest, keep, sorted_tok, wsort,
-                              groups, cap, e, d)
+    if ep is None:
+        combined = _combine_gspmd(cfg, p, xg, dest, keep, sorted_tok, wsort,
+                                  groups, cap, e, d)
+    else:
+        combined = _combine_ep(cfg, p, xg, dest, keep, sorted_tok, wsort,
+                               groups, cap, e, d, ep)
     out = combined.reshape(B, S, d)
     if "shared" in p:
-        out = out + mlp(p["shared"], x)
+        out = out + mlp(p["shared"], x, shared_tp)
     return out, aux.float()
 
 
@@ -155,3 +189,34 @@ def _combine_gspmd(cfg, p, xg, dest, keep, sorted_tok, wsort,
     return torch.zeros_like(xg).index_put_(
         (gi.expand_as(sorted_tok), sorted_tok), gathered * wsort[..., None],
         accumulate=True)
+
+
+def _combine_ep(cfg, p, xg, dest, keep, sorted_tok, wsort, groups, cap, e,
+                d, ep):
+    """The expert-parallel combine (the reference's
+    ``_combine_ep_shardmap``): this rank holds experts
+    ``[rank * e_local, (rank + 1) * e_local)`` of the ``ep`` group,
+    scatters only the rows bound for them, runs them, and the (g, tg, d)
+    partial combines are summed over the group.  The routing before it
+    runs alike on every rank of the group, so the tokens and weights
+    enter through ``copy_in`` (their gradients summed over the experts'
+    ranks) and the sum leaves through ``reduce_out`` (the gradient of a
+    replicated output passes to every rank's partial unchanged)."""
+    e_local = e // ep.size
+    xg, wsort = ep.copy_in(xg), ep.copy_in(wsort)
+    local_dst = dest - ep.rank * e_local * cap
+    mine = keep & (local_dst >= 0) & (local_dst < e_local * cap)
+    dst = torch.where(mine, local_dst, e_local * cap)   # spare row
+    gi = torch.arange(groups, device=xg.device)[:, None]
+    buf = torch.zeros((groups, e_local * cap + 1, d), dtype=xg.dtype,
+                      device=xg.device)
+    buf[gi, dst] = xg[gi, sorted_tok]
+    out_buf = _expert_block(
+        p, buf[:, :e_local * cap].reshape(groups, e_local, cap, d),
+        xg.dtype).reshape(groups, e_local * cap, d)
+    out_buf = F.pad(out_buf, (0, 0, 0, 1))    # the spare row reads zeros
+    gathered = torch.where(mine[..., None], out_buf[gi, dst], 0.0)
+    partial = torch.zeros_like(xg).index_put_(
+        (gi.expand_as(sorted_tok), sorted_tok), gathered * wsort[..., None],
+        accumulate=True)
+    return ep.reduce_out(partial)

@@ -25,13 +25,21 @@ in the reference): each layer's ``block_forward`` then runs under
 ``jax.checkpoint`` around the reference's scan body, so backward
 recomputes the layer (K3 included) from its input.  The sequence-chunked
 CE checkpoints each chunk, and ``chunked_sdpa`` each score block, as the
-reference does.  Of the reference's other training devices:
-``_grad_dtype_guard`` needs no op here, since PyTorch already gives a
-bf16 tensor a bf16 gradient; ``optimization_barrier``, ``act_spec``,
-``save_spec`` and ``checkpoint_name`` are XLA/GSPMD devices with no
-single-card meaning, and wait for the sharding layer (ROADMAP Queue 1,
-item 16) and the ``save_tp_out`` remat policy (item 17): ``loss_fn``
-raises on a ``remat_policy``, and takes no activation specs.
+reference does.  ``_grad_dtype_guard`` needs no op here, since PyTorch
+already gives a bf16 tensor a bf16 gradient, and
+``optimization_barrier`` is an XLA device.
+
+Sharded training: when the params are DTensors (placed by
+``sharding.Plan``), ``loss_fn`` and ``forward`` run the sharded step of
+:mod:`repro_torch.sharding.parallel`: each rank its batch shard (split
+over ``act_spec``'s batch axes), each layer's params gathered over the
+FSDP axis inside the layer (inside its remat), attention heads, MLP
+width, SSM channels and the vocab split over "model" where they divide,
+the experts too with ``moe_ep_axis``.  The vocab-sharded CE takes the
+log-sum-exp over the shards with a max and a sum all-reduce; the logits
+are never gathered.  ``save_spec`` and the ``save_tp_out`` remat policy
+wait for the dry-run (ROADMAP Queue 1, item 17): ``loss_fn`` raises on a
+``remat_policy``.
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import common, mamba as mamba_lib, moe as moe_lib
+from repro_torch.sharding import parallel
+from repro_torch.sharding.parallel import GATHER, SHARD, SLICE
 from repro_torch.util import Device, resolve_device, tree_map
 
 Params = Dict[str, Any]
@@ -115,16 +125,56 @@ def init_block(cfg: ModelConfig, seg: Segment, gen: torch.Generator,
     return p
 
 
-def _mixer_forward(cfg, seg: Segment, p: Params, x, positions,
+def _block_groups(cfg, seg: Segment, ctx, moe_ep_axis) -> Dict[str, Any]:
+    """The group each sublayer of a sharded block splits its work over
+    (the model axis, or the experts' axis), None where it gathers its
+    weights and runs replicated.  The one place that decides it: the
+    layers compute with these groups, and ``_block_uses`` derives the
+    weights' uses from them."""
+    if ctx is None:
+        return {}
+    groups = {"attn": ctx.tp_for(cfg.n_heads) if seg.attn == "gqa" else None,
+              "ssm": ctx.tp_for(cfg.ssm_d_inner) if seg.ssm else None,
+              "mlp": ctx.tp_for(seg.d_ff) if seg.ffn == "mlp" else None}
+    if seg.ffn == "moe":
+        groups["moe"], groups["shared"] = moe_lib.tp_groups(cfg, ctx,
+                                                            moe_ep_axis)
+    return groups
+
+
+def _block_uses(p: Params, groups: Dict[str, Any]) -> Any:
+    """How a sharded block uses each of its weights' model-axis shards
+    (see ``sharding.parallel``): a sublayer with a group computes on its
+    weights' shards (Mamba on its x and z columns of ``in_proj``, a
+    SLICE; the router is whole), any other gathers them."""
+    def all_(tree, group):
+        return tree_map(lambda _: GATHER if group is None else SHARD, tree)
+
+    out = {}
+    for key, sub in p.items():
+        group = groups.get(key)
+        if key == "ssm" and group is not None:
+            out[key] = {k: SLICE if k == "in_proj" else SHARD for k in sub}
+        elif key == "moe":
+            out[key] = {k: (all_(v, groups["shared"]) if k == "shared" else
+                            all_(v, None if k == "router" else group))
+                        for k, v in sub.items()}
+        else:
+            out[key] = all_(sub, group)
+    return out
+
+
+def _mixer_forward(cfg, seg: Segment, p: Params, x, positions, groups,
                    k_valid=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Token-mixing sublayer(s) on a full sequence; returns (dx, cache)."""
+    """Token-mixing sublayer(s) on a full sequence; returns (dx, cache).
+    `groups`: ``_block_groups``'s ({} on one device)."""
     h = common.rmsnorm(p["ln1"], x, cfg.norm_eps)
     cache: Dict[str, Any] = {}
     parts = []
     if seg.attn == "gqa":
-        a, kv = attn_lib.gqa_forward(cfg, p["attn"], h, positions,
-                                     causal=seg.causal, window=seg.window,
-                                     k_valid=k_valid)
+        a, kv = attn_lib.gqa_forward(
+            cfg, p["attn"], h, positions, causal=seg.causal,
+            window=seg.window, k_valid=k_valid, tp=groups.get("attn"))
         cache.update(kv)
         parts.append(a)
     elif seg.attn == "mla":
@@ -133,7 +183,7 @@ def _mixer_forward(cfg, seg: Segment, p: Params, x, positions,
         cache.update(kv)
         parts.append(a)
     if seg.ssm:
-        s, sc = mamba_lib.mamba_forward(cfg, p["ssm"], h)
+        s, sc = mamba_lib.mamba_forward(cfg, p["ssm"], h, groups.get("ssm"))
         cache.update(sc)
         parts.append(s)
     if len(parts) == 2:  # Hymba fusion: mean of per-branch RMS-normed outputs
@@ -147,10 +197,14 @@ def _mixer_forward(cfg, seg: Segment, p: Params, x, positions,
 
 def block_forward(cfg, seg: Segment, p: Params, x, positions, enc_out=None,
                   moe_groups: int = 1, moe_ep_axis=None, k_valid=None,
+                  ctx=None,
                   ) -> Tuple[torch.Tensor, Dict[str, Any], torch.Tensor]:
-    """Full-sequence block. Returns (x, cache, moe_aux)."""
+    """Full-sequence block. Returns (x, cache, moe_aux).  With `ctx` (a
+    sharded step) `p` is the block's local params (``_block_uses``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    dx, cache = _mixer_forward(cfg, seg, p, x, positions, k_valid=k_valid)
+    groups = _block_groups(cfg, seg, ctx, moe_ep_axis)
+    dx, cache = _mixer_forward(cfg, seg, p, x, positions, groups,
+                               k_valid=k_valid)
     x = x + dx
     if seg.cross:
         h = common.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
@@ -163,10 +217,10 @@ def block_forward(cfg, seg: Segment, p: Params, x, positions, enc_out=None,
     if seg.ffn:
         h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
         if seg.ffn == "mlp":
-            x = x + common.mlp(p["mlp"], h)
+            x = x + common.mlp(p["mlp"], h, groups.get("mlp"))
         else:
             out, aux = moe_lib.moe_forward(cfg, p["moe"], h, groups=moe_groups,
-                                           ep_axis=moe_ep_axis)
+                                           ep_axis=moe_ep_axis, ctx=ctx)
             x = x + out
     return x, cache, aux
 
@@ -249,23 +303,29 @@ def _layer(seg_params: Params, i: int) -> Params:
 
 
 def _remat_block(cfg, seg: Segment, lp: Params, x, positions, enc_out,
-                 moe_groups: int, moe_ep_axis):
+                 moe_groups: int, moe_ep_axis, ctx=None, uses=None):
     """block_forward under ``torch.utils.checkpoint``: only the layer's
     input is kept, and backward recomputes the layer.  Returns (x, aux);
-    a training forward keeps no cache."""
+    a training forward keeps no cache.  On a sharded step the layer's
+    params are gathered inside, so backward gathers them again and no
+    gathered copy outlives the layer."""
     def body(x, lp, enc_out):
+        if ctx is not None:
+            lp = ctx.localize_tree(lp, uses)
         y, _, aux = block_forward(cfg, seg, lp, x, positions, enc_out,
-                                  moe_groups, moe_ep_axis)
+                                  moe_groups, moe_ep_axis, ctx=ctx)
         return y, aux
     return checkpoint(body, x, lp, enc_out, use_reentrant=False)
 
 
 def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
                   remat: bool = False, want_cache: bool = False,
-                  moe_groups: int = 1, moe_ep_axis=None, k_valid=None):
+                  moe_groups: int = 1, moe_ep_axis=None, k_valid=None,
+                  ctx=None):
     """Run each segment layer by layer; returns (x, per-segment stacked
     caches, aux sum).  With `remat` (and autograd recording) each layer
-    is rematerialized in backward (no caches, no pad mask)."""
+    is rematerialized in backward (no caches, no pad mask).  With `ctx`
+    each layer's params are DTensor views gathered at the layer."""
     # no _grad_dtype_guard: a bf16 residual stream already gets a bf16
     # gradient in PyTorch
     remat = remat and torch.is_grad_enabled()
@@ -275,15 +335,21 @@ def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, sp in zip(segs, seg_params):
         layer_caches, auxes = [], []
+        uses = (None if ctx is None else _block_uses(
+            sp, _block_groups(cfg, seg, ctx, moe_ep_axis)))
         for i in range(seg.n_layers):
             if remat:
                 x, aux = _remat_block(cfg, seg, _layer(sp, i), x, positions,
-                                      enc_out, moe_groups, moe_ep_axis)
+                                      enc_out, moe_groups, moe_ep_axis, ctx,
+                                      uses)
                 auxes.append(aux)
                 continue
-            x, cache, aux = block_forward(cfg, seg, _layer(sp, i), x,
+            lp = _layer(sp, i)
+            if ctx is not None:
+                lp = ctx.localize_tree(lp, uses)
+            x, cache, aux = block_forward(cfg, seg, lp, x,
                                           positions, enc_out, moe_groups,
-                                          moe_ep_axis, k_valid)
+                                          moe_ep_axis, k_valid, ctx=ctx)
             auxes.append(aux)
             if want_cache:
                 layer_caches.append(cache)
@@ -296,65 +362,120 @@ def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
     return x, caches, aux_total
 
 
+def _top(params: Params, ctx, key: str, use: str = GATHER):
+    """A top-level leaf (embedding table, final norm) as this rank uses
+    it: itself on one device, localized on a sharded step."""
+    return params[key] if ctx is None else ctx.localize(params[key], use)
+
+
+def _vocab_tp(cfg, ctx):
+    return None if ctx is None else ctx.tp_for(cfg.vocab_padded)
+
+
+def _table(cfg, params: Params, ctx) -> Params:
+    """The unembedding table as ``common.unembed`` reads it."""
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    use = SHARD if _vocab_tp(cfg, ctx) is not None else GATHER
+    return {key: _top(params, ctx, key, use)}
+
+
 def _encode(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, remat: bool = False):
+            *, remat: bool = False, ctx=None):
     """The encoder stack of enc-dec archs over the stub frame embeddings."""
     enc_x = batch["frame_embeds"].to(cfg.param_dtype)
     enc_segs = build_segments(cfg, role="encoder")
     enc_out, _, _ = _run_segments(
         cfg, enc_segs, params["enc_segments"], enc_x,
-        torch.arange(enc_x.shape[1], device=enc_x.device), remat=remat)
-    return common.rmsnorm(params["enc_final_norm"], enc_out, cfg.norm_eps)
+        torch.arange(enc_x.shape[1], device=enc_x.device), remat=remat,
+        ctx=ctx)
+    return common.rmsnorm({"scale": _top(params["enc_final_norm"], ctx,
+                                         "scale")}, enc_out, cfg.norm_eps)
 
 
 def embed_inputs(cfg: ModelConfig, params: Params,
-                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 batch: Dict[str, torch.Tensor], ctx=None) -> torch.Tensor:
     """Token + stub-frontend embedding -> (B, S, d)."""
-    x = common.embed(params, batch["tokens"])
+    tp = _vocab_tp(cfg, ctx)
+    table = _top(params, ctx, "embed", GATHER if tp is None else SHARD)
+    x = common.embed({"embed": table}, batch["tokens"], tp)
     if cfg.frontend == "vision":
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     return x
 
 
 def _hidden_states(cfg, params, batch, *, remat: bool = False,
-                   moe_groups=1, moe_ep_axis=None):
+                   moe_groups=1, moe_ep_axis=None, ctx=None):
     """Forward to final hidden states (pre-unembed)."""
-    enc_out = (_encode(cfg, params, batch, remat=remat)
+    enc_out = (_encode(cfg, params, batch, remat=remat, ctx=ctx)
                if cfg.is_encoder_decoder else None)
-    x = embed_inputs(cfg, params, batch)
+    x = embed_inputs(cfg, params, batch, ctx)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _, aux = _run_segments(cfg, build_segments(cfg), params["segments"],
                               x, positions, enc_out, remat=remat,
-                              moe_groups=moe_groups, moe_ep_axis=moe_ep_axis)
-    return common.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+                              moe_groups=moe_groups, moe_ep_axis=moe_ep_axis,
+                              ctx=ctx)
+    norm = {"scale": _top(params["final_norm"], ctx, "scale")}
+    return common.rmsnorm(norm, x, cfg.norm_eps), aux
+
+
+def _sharded_step(params: Params, batch: Dict[str, Any], act_spec):
+    """(ctx, this rank's batch) of a sharded step, (None, batch) on one
+    device (params that are not DTensors)."""
+    ctx = parallel.context(params, batch, act_spec=act_spec)
+    if ctx is None:
+        return None, batch
+    return ctx, {k: ctx.local_batch(v) for k, v in batch.items()}
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, remat: bool = True, moe_groups: int = 1, moe_ep_axis=None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full forward to logits. Returns (logits, moe_aux)."""
-    x, aux = _hidden_states(cfg, params, batch, remat=remat,
-                            moe_groups=moe_groups, moe_ep_axis=moe_ep_axis)
-    return common.unembed(cfg, params, x), aux
+            *, remat: bool = True, act_spec=None, moe_groups: int = 1,
+            moe_ep_axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward to logits. Returns (logits, moe_aux).  On a sharded
+    step (DTensor params) every rank passes the same global batch and
+    gets the full logits, gathered from the ranks' rows and vocab shards
+    (``Plan.logits_spec``'s layout)."""
+    ctx, local = _sharded_step(params, batch, act_spec)
+    x, aux = _hidden_states(cfg, params, local, remat=remat,
+                            moe_groups=moe_groups, moe_ep_axis=moe_ep_axis,
+                            ctx=ctx)
+    tp = _vocab_tp(cfg, ctx)
+    logits = common.unembed(cfg, _table(cfg, params, ctx), x, tp)
+    if ctx is None:
+        return logits, aux
+    return ctx.gather_out(logits, shard_last=tp is not None), aux
 
 
 LOSS_CHUNK = 512  # sequence-chunked CE above this length (memory-linear)
 
 
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor, tp
+               ) -> torch.Tensor:
+    """Per-token NLL of f32 logits (this rank's vocab shard with `tp`)."""
+    if tp is not None:
+        return common.sharded_nll(logits, labels, tp)
+    return common.token_nll(logits, labels)
+
+
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, aux_coef: float = 0.01, remat: bool = True,
+            *, aux_coef: float = 0.01, remat: bool = True, act_spec=None,
             moe_groups: int = 1, moe_ep_axis=None, remat_policy=None
             ) -> torch.Tensor:
     """Mean next-token NLL plus `aux_coef` times the MoE aux loss;
     differentiable (``loss.backward()`` or ``torch.autograd.grad``).
-    ``remat_policy`` (the reference's ``save_tp_out``) is not ported and
-    raises."""
+    On a sharded step (DTensor params) it is the global batch's loss on
+    every rank, and the gradients reach the DTensor params in their own
+    placements.  ``remat_policy`` (the reference's ``save_tp_out``) is
+    not ported and raises."""
     if remat_policy is not None:
         raise NotImplementedError(
             f"loss_fn: remat_policy={remat_policy!r} is not ported; it waits "
-            "for the sharding layer (ROADMAP Queue 1, items 16 and 17)")
+            "for the dry-run (ROADMAP Queue 1, item 17)")
+    ctx, batch = _sharded_step(params, batch, act_spec)
     x, aux = _hidden_states(cfg, params, batch, remat=remat,
-                            moe_groups=moe_groups, moe_ep_axis=moe_ep_axis)
+                            moe_groups=moe_groups, moe_ep_axis=moe_ep_axis,
+                            ctx=ctx)
+    tp = _vocab_tp(cfg, ctx)
+    table = _table(cfg, params, ctx)
     labels, mask = batch["labels"], batch["mask"].float()
     if cfg.frontend == "vision":  # frontend tokens carry no LM loss
         pad = x.shape[1] - labels.shape[1]
@@ -365,10 +486,8 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
         # logits never materialize, and backward recomputes them chunk
         # by chunk (the reference's @jax.checkpoint chunk_nll)
         def chunk_nll(xc, lc, mc):
-            logits = common.unembed(cfg, params, xc)
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, lc.long()[..., None])[..., 0]
-            return torch.sum((logz - gold) * mc)
+            logits = common.unembed(cfg, table, xc, tp)
+            return torch.sum(_token_nll(logits, lc, tp) * mc)
 
         tot = torch.zeros((), device=x.device)
         cnt = torch.zeros((), device=x.device)
@@ -378,11 +497,17 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             tot = tot + (checkpoint(chunk_nll, *args, use_reentrant=False)
                          if torch.is_grad_enabled() else chunk_nll(*args))
             cnt = cnt + torch.sum(mask[:, sl])
-        nll = tot / cnt.clamp_min(1.0)
     else:
-        logits = common.unembed(cfg, params, x)
-        nll = common.softmax_cross_entropy(logits, labels, mask)
-    return nll + aux_coef * aux
+        logits = common.unembed(cfg, table, x, tp)
+        tot = torch.sum(_token_nll(logits, labels, tp) * mask)
+        cnt = torch.sum(mask)
+    if ctx is None:
+        return tot / cnt.clamp_min(1.0) + aux_coef * aux
+    # every rank adds its share (the global count's, and 1 / n_batch of
+    # the aux loss, which every rank holds whole): the batch axes' sum
+    # is the global loss
+    nll = tot / ctx.batch_sum(cnt).clamp_min(1.0)
+    return ctx.batch_sum(nll + (aux_coef / ctx.n_batch) * aux)
 
 
 # ------------------------------------------------------------------ serving

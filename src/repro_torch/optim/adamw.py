@@ -11,14 +11,21 @@ The port of ``repro.optim.adamw``:
     returns those same trees.  A Hymba-1.5B state is ~16.6 GB; a second
     copy of it for the new values would double that.  The arithmetic is
     element for element the same.
-Sharded (ZeRO) optimizer state waits for the sharding layer.
+  * ZeRO: on DTensor params, gradients and moments (one placement per
+    leaf, ``sharding.Plan``'s) each rank updates its own shards in place;
+    the global gradient norm, and with it the clip, is the norm of the
+    full tensors: each leaf's local sum of squares, all-reduced over the
+    mesh axes that shard it.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch.sharding.parallel import local
 from repro_torch.util import tree_leaves, tree_map
 
 # leaves bigger than this (bytes) with a leading stack dim go layer by layer
@@ -37,16 +44,32 @@ class Hyper(NamedTuple):
 def init(params: Any, moment_dtype: torch.dtype = torch.float32
          ) -> Dict[str, Any]:
     def zeros(p):
+        if isinstance(p, DTensor):          # the param's placements
+            return torch.zeros_like(p, dtype=moment_dtype)
         return torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32 (leaves summed in
-    the reference's order)."""
-    total = None
+    the reference's order).  DTensor leaves count in full: their local
+    sums are grouped by the mesh axes that shard them and all-reduced
+    over those axes, once per group."""
+    totals: Dict[tuple, torch.Tensor] = {}
+    mesh = None
     for leaf in tree_leaves(tree):
+        axes: tuple = ()
+        if isinstance(leaf, DTensor):
+            mesh = leaf.device_mesh
+            axes = tuple(i for i, p in enumerate(leaf.placements)
+                         if isinstance(p, Shard))
+            leaf = local(leaf)
         sq = torch.sum(torch.square(leaf.float()))
+        totals[axes] = sq if axes not in totals else totals[axes] + sq
+    total = None
+    for axes, sq in totals.items():
+        for i in axes:
+            dist.all_reduce(sq, group=mesh.get_group(i))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -84,6 +107,7 @@ def update(params: Any, grads: Any, opt: Dict[str, Any],
         v.copy_(v32)
 
     def upd(p, g, m, v):
+        p, g, m, v = (local(t) for t in (p, g, m, v))
         nbytes = p.numel() * p.element_size()
         if p.ndim >= 3 and p.shape[0] > 1 and nbytes > _SCANNED_UPDATE_BYTES:
             for i in range(p.shape[0]):

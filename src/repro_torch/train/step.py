@@ -7,16 +7,24 @@ The port of ``repro.train.step``.  The step is a function
 bounds stored activations to one microbatch plus the per-layer remat
 checkpoints.  The AdamW step updates the state's tensors in place
 (:mod:`repro_torch.optim.adamw`); ``step`` becomes a new tensor.
+
+Sharded training is the same step on a DTensor state (placed by
+``sharding.Plan``): ``loss_fn`` runs the sharded model, each
+microbatch's gradients come back already reduce-scattered into the
+parameters' placements, and are accumulated there shard by shard; the
+AdamW step updates each rank's shards (ZeRO).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, schedule
+from repro_torch.sharding import parallel
 from repro_torch.util import tree_leaves, tree_map
 
 TrainState = Dict[str, Any]
@@ -24,7 +32,7 @@ TrainState = Dict[str, Any]
 
 def make_train_state(cfg: ModelConfig, params: Any,
                      moment_dtype: torch.dtype = torch.float32) -> TrainState:
-    device = tree_leaves(params)[0].device
+    device = parallel.local(tree_leaves(params)[0]).device
     return {"params": params, "opt": adamw.init(params, moment_dtype),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
@@ -73,14 +81,22 @@ def value_and_grad(loss_of, params: Any) -> Tuple[torch.Tensor, Any]:
 
     loss = loss_of(tree_map(leaf, params))
     grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-    return loss.detach(), tree_map(
-        lambda p: (lambda g: torch.zeros_like(p) if g is None else g)(
-            next(grads)), params)
+
+    def grad_of(p):
+        g = next(grads)
+        if g is None:
+            return torch.zeros_like(p)
+        # a DTensor's gradient in its parameter's placements (a pending
+        # sum, Partial, becomes the parameter's shard)
+        if isinstance(g, DTensor) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        return g
+    return loss.detach(), tree_map(grad_of, params)
 
 
 def make_train_step(cfg: ModelConfig, *, hyper: adamw.Hyper = adamw.Hyper(),
                     n_microbatches: int = 1, remat: bool = True,
-                    lr_schedule=None, aux_coef: float = 0.01,
+                    act_spec=None, lr_schedule=None, aux_coef: float = 0.01,
                     moe_groups: int = 1, moe_ep_axis=None,
                     accum_dtype: torch.dtype = torch.float32,
                     remat_policy=None):
@@ -90,7 +106,8 @@ def make_train_step(cfg: ModelConfig, *, hyper: adamw.Hyper = adamw.Hyper(),
 
     def loss_of(params, mb):
         return transformer.loss_fn(cfg, params, mb, aux_coef=aux_coef,
-                                   remat=remat, moe_groups=moe_groups,
+                                   remat=remat, act_spec=act_spec,
+                                   moe_groups=moe_groups,
                                    moe_ep_axis=moe_ep_axis,
                                    remat_policy=remat_policy)
 
@@ -112,10 +129,14 @@ def make_train_step(cfg: ModelConfig, *, hyper: adamw.Hyper = adamw.Hyper(),
             if tot_g is None:
                 tot_g = tree_map(lambda x: x.to(accum_dtype), g)
             else:
-                tree_map(lambda a, x: a.add_(x.to(accum_dtype)), tot_g, g)
+                # shard by shard: a DTensor's gradient is already in its
+                # parameter's placements
+                tree_map(lambda a, x: parallel.local(a).add_(
+                    parallel.local(x).to(accum_dtype)), tot_g, g)
             del g
         inv = 1.0 / n_microbatches
-        return tot_l * inv, tree_map(lambda x: x.mul_(inv), tot_g)
+        tree_map(lambda x: parallel.local(x).mul_(inv), tot_g)
+        return tot_l * inv, tot_g
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

@@ -42,6 +42,8 @@ def test_scan_covers_the_port():
             "train/step.py", "train/trainer.py", "train/multi_pilot.py",
             "data/pipeline.py", "checkpoint/manager.py",
             "launch/train.py"} <= rel
+    assert {"sharding/__init__.py", "sharding/planner.py",
+            "sharding/parallel.py", "launch/mesh.py", "launch/spmd.py"} <= rel
     assert {"torch_train_e2e.py", "torch_hybrid_pipeline.py",
             "torch_serve_batch.py"} <= names
     configs = {p.name for p in (ROOT / "src" / "repro" / "configs").glob(
@@ -70,7 +72,11 @@ def test_no_jax_or_reference_imports(path):
                                     "repro_torch.train",
                                     "repro_torch.train.trainer",
                                     "repro_torch.train.multi_pilot",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.sharding",
+                                    "repro_torch.sharding.parallel",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.spmd"])
 def test_each_entry_module_imports_first(module):
     """No import cycle: each module imports on its own in a fresh
     interpreter (the Session imports ``convert``, which needs the

@@ -313,11 +313,47 @@ def test_topk_takes_the_first_of_tied_maxima():
 
 
 def test_moe_expert_parallel_path_is_not_ported():
-    _, tcfg = _cfgs("qwen2-moe-a2.7b")
-    tp = tmoe.init_moe(tcfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tmoe.moe_forward(tcfg, tp, torch.zeros(1, 4, tcfg.d_model),
-                         ep_axis="model")
+    """The expert-parallel combine is ported: ``ep_axis="model"`` on a
+    1 x 1 gloo mesh takes it (all experts on the one rank) and equals
+    the GSPMD combine bit for bit, forward and gradients, with capacity
+    drops; without a mesh ``ep_axis`` names no axis and the GSPMD
+    combine runs, as in the reference.  (The name is historical: it is
+    kept so that the test's ID stays the same since the refusal it once
+    asserted was removed.)"""
+    from repro_torch.core import DeviceGrid
+    from repro_torch.launch import spmd
+    from repro_torch.sharding import parallel
+    _, tcfg = _cfgs("qwen2-moe-a2.7b", moe_capacity_factor=1.0)
+    p = tmoe.init_moe(tcfg, torch.Generator().manual_seed(0))
+    x = torch.randn(2, 32, tcfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    ctx = parallel.Ctx(spmd.local_mesh(DeviceGrid([torch.device("cpu")])),
+                       ())
+    calls = []
+    real = tmoe._combine_ep
+    tmoe._combine_ep = lambda *a: calls.append(1) or real(*a)
+    try:
+        def run(ep_axis, ctx):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in p.items() if k != "shared"}
+            xi = x.detach().requires_grad_(True)
+            out, aux = tmoe.moe_forward(tcfg, {**p, **leaves}, xi, groups=2,
+                                        ep_axis=ep_axis, ctx=ctx)
+            grads = torch.autograd.grad((out.square().sum() + aux),
+                                        [xi, *leaves.values()])
+            return out, aux, grads
+
+        want = run(None, None)
+        got = run("model", ctx)
+        assert calls == [1]
+        no_mesh = run("model", None)
+        assert calls == [1]
+    finally:
+        tmoe._combine_ep = real
+    for a, b, c in zip((want[0], want[1], *want[2]),
+                       (got[0], got[1], *got[2]),
+                       (no_mesh[0], no_mesh[1], *no_mesh[2])):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 # ------------------------------------------------------------------ Mamba
