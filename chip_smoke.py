@@ -105,7 +105,23 @@ Phases (any failure raises and the script exits non-zero):
      Qwen2-MoE-A2.7B MoE layer at full width in bf16 (1 x 2048 tokens)
      on the 1 x 1 mesh: the expert-parallel combine against the GSPMD
      combine, forward and the layer's gradients (2e-2 of max |want|;
-     whether bit for bit), each timed.
+     whether bit for bit), each timed;
+ 15. the roofline and dry-run layer: (a) ``roofline.analytic``'s step
+     cost of 13c's step, 11b's Hymba-1.5B prefill and one of its decode
+     steps beside the walls measured there: model FLOP utilisation
+     (model FLOPs over wall x the bf16 peak) and the roofline estimate's
+     error ratio, and FlopCounterMode over one forward of 11a's 3-layer
+     Hymba on the card against ``analytic.forward_flops`` (0.7-1.4); (b) a
+     Session train stage (Hymba-1.5B, 13d's 2 x 512, STAGE_STEPS steps)
+     carrying ``StageCost.from_model``: its placement's estimate, actual
+     runtime and their ratio, and the pilot's estimate drift; (c)
+     ``python -m repro_torch.launch.dryrun --device cuda`` in a
+     subprocess on DRYRUN_CELL, a fake process group of 256 ranks with
+     fake CUDA tensors: the record's keys, collective bytes, the analytic fit
+     in 80 GB, no kernel launched; (d) 13c's plan path for SAVE_TP_STEPS
+     steps with the ``save_tp_out`` remat policy: losses against 13c's
+     (rel 1e-4; whether bit for bit), exact K3 and fused-backward counts,
+     ms a step and peak memory.
 
 Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
 it and reads them after.  Phase 11b sets K3's count to 0 before it and
@@ -114,7 +130,9 @@ reads it after (``launches_model``), and so does phase 12
 backward's and K3-bwd's counts to 0 before them and read them after
 (``launches_train``, ``launches_hybrid``; the fused backward's and
 K3-bwd's ``launches`` are 13c's: K3-bwd is off the model path, 0), and
-phase 14a around its plain steps (``launches_plain``).
+phase 14a around its plain steps (``launches_plain``), and phase 15d
+around its steps (``launches_save_tp_out``).  ``launches_dryrun`` is the
+15c subprocess's own count over its trace (0).
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -288,6 +306,17 @@ HYBRID_BATCH, HYBRID_SEQ, HYBRID_ROUNDS, HYBRID_STEPS = 2, 512, 3, 2
 PLAIN_STEPS, PLAN_TOL = 4, 1e-4
 # 14b: one Qwen2-MoE-A2.7B MoE layer, 1 x 2048 tokens in bf16
 EP_ARCH, EP_TOKENS, EP_TOL, EP_REPS = "qwen2-moe-a2.7b", 2048, 2e-2, 5
+# 15a: FlopCounterMode's count against the analytic one (the reference's
+# 0.7-1.4 of its XLA cross-check)
+FLOP_RATIO = (0.7, 1.4)
+# 15b: train steps of the Session stage that carries a StageCost
+STAGE_STEPS = 3
+# 15c: dry-run cells (arch, shape) on the single-pod (16, 16) mesh
+# train_4k reaches the shape rules of K3 and of the fused backward
+DRYRUN_CELL = ("hymba-1.5b", "train_4k")
+DRYRUN_TIMEOUT = 600
+# 15d: 13c's plan path with the save_tp_out remat policy
+SAVE_TP_STEPS, SAVE_TP_TOL = 2, 1e-4
 # phase 8's DCN costs per byte (benchmarks/bench_session_placement.py)
 SESSION_DCN_COSTS = (0.0, 1e-9, 1e-7, 1e-5, 1e-3, 1.0)
 SESSION_SEED = 80      # simulate's seed is this plus the scenario's index
@@ -2477,8 +2506,6 @@ def phase_plan_vs_plain(torch, dev, card: str, training: dict) -> dict:
     print(f"phase 14a: the plain step (no plan, plain tensors) against "
           f"13c's plan path, {PLAIN_STEPS} steps of {TRAIN_BATCH} x "
           f"{TRAIN_SEQ} in {TRAIN_MICROBATCHES} microbatches")
-    import gc
-    gc.collect()       # 13d's trainer is freed only by the cycle collector
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     base_gb = torch.cuda.memory_allocated(dev) / 1e9
@@ -2702,6 +2729,285 @@ def phase_hybrid(torch, dev) -> dict:
     return {"rounds": rounds, "k3_launches": launches[0],
             "ssm_bwd_launches": launches[1], "k3_bwd_launches": launches[2],
             "k1_per_analyze": k1, "wall_s": wall}
+
+
+def phase_analytic(torch, dev, card: str, training: dict,
+                   serving: dict) -> dict:
+    """15a. The analytic step cost of 13c's step and of 11b's Hymba-1.5B
+    prefill and decode step beside the walls measured there (one card:
+    n_devices 1, tp 1): roofline terms on the H100's ``HW``, model FLOP
+    utilisation and the estimate's error ratio; then FlopCounterMode
+    over one forward of 11a's 3-layer Hymba-1.5B on the card against
+    ``analytic.forward_flops``."""
+    import dataclasses
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.roofline import HW, analytic, estimate_error
+    from repro_torch.roofline import roofline_terms
+    hw = HW()
+    arch, B, S, new = SERVE_MODELS[0]
+    cfg = configs.get(arch)
+    serve = serving[arch]
+    print(f"phase 15a: analytic step costs of {cfg.name} beside the measured "
+          f"walls (n_devices 1, tp 1; peak {hw.peak_flops:.4g} FLOP/s, HBM "
+          f"{hw.hbm_bw:.4g} B/s) [{card}]")
+    cells = (("13c train step",
+              ShapeConfig("13c", TRAIN_SEQ, TRAIN_BATCH, "train"),
+              TRAIN_MICROBATCHES, training["step_ms"]),
+             ("11b prefill", ShapeConfig("11b-prefill", S, B, "prefill"), 1,
+              serve["prefill_ms"]),
+             # the decode step reads a cache of S + new + 1 slots
+             ("11b decode step",
+              ShapeConfig("11b-decode", S + new + 1, B, "decode"), 1,
+              serve["decode_ms_per_token"]))
+    rows = {}
+    for label, shape, n_mb, wall_ms in cells:
+        cost = analytic.step_cost(cfg, shape, n_devices=1, tp=1,
+                                  n_microbatches=n_mb)
+        terms = roofline_terms(
+            flops_global=cost.flops, hbm_bytes_global=cost.hbm_bytes,
+            collective_bytes_per_device=0.0, n_chips=1,
+            model_flops=cost.model_flops, hw=hw)
+        wall_s = wall_ms / 1e3
+        est_s = max(terms["compute_s"], terms["memory_s"])
+        mfu = cost.model_flops / (wall_s * hw.peak_flops)
+        ratio = estimate_error(est_s, wall_s)
+        check(cost.flops > 0 and cost.hbm_bytes > 0 and cost.model_flops > 0
+              and math.isfinite(mfu) and 0 < mfu < 1 and ratio is not None,
+              f"phase 15a {label}: cost {cost}, mfu {mfu}, ratio {ratio}")
+        rows[label] = {"batch": shape.global_batch, "seq": shape.seq_len,
+                       "n_microbatches": n_mb, "flops": cost.flops,
+                       "hbm_bytes": cost.hbm_bytes,
+                       "model_flops": cost.model_flops, "terms": terms,
+                       "est_s": est_s, "wall_s": wall_s, "mfu": mfu,
+                       "est_error_ratio": ratio}
+        print(f"  {label} ({shape.global_batch} x {shape.seq_len}, "
+              f"{n_mb} microbatches): flops {cost.flops:.6e}, hbm_bytes "
+              f"{cost.hbm_bytes:.6e}, model_flops {cost.model_flops:.6e}; "
+              f"compute {1e3 * terms['compute_s']:.4f} ms, memory "
+              f"{1e3 * terms['memory_s']:.4f} ms ({terms['dominant']}); "
+              f"wall {wall_ms:.4f} ms; model FLOP utilisation "
+              f"{100 * mfu:.4f} %; est_error_ratio {ratio:.4f} [{card}]")
+
+    cfg3 = dataclasses.replace(cfg, n_layers=3, full_attn_layers=(0, 2),
+                               dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    params = tf.init_params(cfg3, gen, device=dev)
+    tokens = torch.randint(0, cfg3.vocab_size, (1, PARITY_S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        logits, _ = tf.forward(cfg3, params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    counted = counter.get_total_flops()
+    want = analytic.forward_flops(cfg3, 1, PARITY_S)
+    flop_ratio = want / counted
+    check(bool(torch.isfinite(logits).all()), "phase 15a: non-finite logits")
+    check(FLOP_RATIO[0] < flop_ratio < FLOP_RATIO[1],
+          f"phase 15a: analytic/counted forward FLOPs {flop_ratio:.4f}, "
+          f"want within {FLOP_RATIO}")
+    del params, logits
+    torch.cuda.empty_cache()
+    print(f"  3-layer {cfg.name} forward at 1 x {PARITY_S} (f32): "
+          f"FlopCounterMode {counted:.6e} FLOPs, analytic {want:.6e}, "
+          f"analytic/counted {flop_ratio:.4f} (within {FLOP_RATIO})")
+    return {"cells": rows, "forward_flops_counted": counted,
+            "forward_flops_analytic": want, "forward_flop_ratio": flop_ratio}
+
+
+def phase_stage_cost(torch, dev, card: str) -> dict:
+    """15b. A Session train stage (Hymba-1.5B at 13d's HYBRID_BATCH x
+    HYBRID_SEQ, STAGE_STEPS steps from a fresh Trainer) carrying
+    ``StageCost.from_model``'s step cost times its steps: where it is
+    placed, the placement's estimate, actual runtime and their ratio,
+    and the pilot's estimate drift."""
+    from repro_torch import configs
+    from repro_torch.core import (PilotDescription, ResourceManager,
+                                  Session, hpc_stage)
+    from repro_torch.core.control_plane import ControlPlane
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.roofline import StageCost
+    from repro_torch.train.trainer import Trainer
+    cfg = configs.get("hymba-1.5b")
+    step = StageCost.from_model(
+        cfg, ShapeConfig("15b", HYBRID_SEQ, HYBRID_BATCH, "train"),
+        n_devices=1, tp=1)
+    cost = StageCost(flops=STAGE_STEPS * step.flops,
+                     hbm_bytes=STAGE_STEPS * step.hbm_bytes)
+    print(f"phase 15b: a Session train stage ({cfg.name}, {HYBRID_BATCH} x "
+          f"{HYBRID_SEQ}, {STAGE_STEPS} steps of a fresh Trainer) carrying "
+          f"StageCost.from_model: flops {cost.flops:.6e}, hbm_bytes "
+          f"{cost.hbm_bytes:.6e}")
+    session = Session(ResourceManager(devices=[dev] * 2))
+    session.add_pilot(PilotDescription(n_chips=1, name="hpc", runtime="hpc"))
+    session.add_pilot(PilotDescription(n_chips=1, name="ana",
+                                       runtime="analytics"))
+
+    def train(mesh=None):
+        tr = Trainer(cfg, mesh, global_batch=HYBRID_BATCH, seq=HYBRID_SEQ)
+        return {"loss": tr.run(STAGE_STEPS, log_every=0)[-1]["loss"]}
+
+    try:
+        session.run([hpc_stage("train", train, outputs=("loss",),
+                               cost=cost)])
+        place = dict(session.placements["train"])
+        drift = ControlPlane.estimate_drift(
+            session.pilots[place["pilot"]].agent.heartbeat())
+        loss = float(session.results["train"]["loss"])
+    finally:
+        session.shutdown()
+    torch.cuda.empty_cache()
+    check(math.isfinite(loss), f"phase 15b: loss {loss}")
+    check(place.get("est_runtime_s", 0) > 0
+          and place.get("actual_runtime_s", 0) > 0
+          and place.get("est_error_ratio") is not None,
+          f"phase 15b: placement {place}")
+    print(f"  placed on {place['pilot']} ({place['chosen']['bound']}-bound): "
+          f"est_runtime_s {place['est_runtime_s']:.6f}, actual_runtime_s "
+          f"{place['actual_runtime_s']:.6f}, est_error_ratio "
+          f"{place['est_error_ratio']:.4f}, est_drift {drift}; loss "
+          f"{loss:.6f} [{card}]")
+    return {"pilot": place["pilot"], "bound": place["chosen"]["bound"],
+            "flops": cost.flops, "hbm_bytes": cost.hbm_bytes,
+            "est_runtime_s": place["est_runtime_s"],
+            "actual_runtime_s": place["actual_runtime_s"],
+            "est_error_ratio": place["est_error_ratio"], "est_drift": drift,
+            "loss": loss}
+
+
+DRYRUN_KEYS = ("memory", "cost_analysis", "collectives", "analytic",
+               "params_bytes_per_device", "state_bytes_per_device",
+               "analytic_peak_bytes_per_device", "n_microbatches",
+               "fits_hbm_analytic", "terms", "trace_s", "torch_version",
+               "kernel_launches")
+
+
+def phase_dryrun(card: str) -> dict:
+    """15c. ``python -m repro_torch.launch.dryrun --device cuda`` on
+    DRYRUN_CELL in a subprocess: its record's keys, collective bytes,
+    the analytic fit in 80 GB and its own kernel counts (0)."""
+    from repro_torch.core.resource_manager import HBM_BYTES_PER_CHIP
+    arch, shape = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "single", "--device", "cuda",
+               "--out", out_dir]
+        try:
+            # subprocess.run kills the child when the timeout expires
+            proc = subprocess.run(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired as e:
+            check(False, f"phase 15c {arch} x {shape}: over {DRYRUN_TIMEOUT}"
+                  f" s; {str(e.output)[-2000:]}")
+        check(proc.returncode == 0, f"phase 15c {arch} x {shape}: exit "
+              f"{proc.returncode}; {proc.stdout[-3000:]}")
+        with open(os.path.join(out_dir, f"{arch}__{shape}__single.json")) as f:
+            rec = json.load(f)
+    wall = time.perf_counter() - t0
+    missing = [k for k in DRYRUN_KEYS if k not in rec]
+    check(not missing, f"phase 15c {arch}: keys {missing} missing")
+    check(rec["collectives"]["total"] > 0,
+          f"phase 15c {arch}: no collective bytes")
+    check(not any(rec["kernel_launches"].values()),
+          f"phase 15c {arch}: kernels launched {rec['kernel_launches']}")
+    peak = rec["analytic_peak_bytes_per_device"]
+    check(rec["fits_hbm_analytic"] == (peak < HBM_BYTES_PER_CHIP),
+          f"phase 15c {arch}: fits_hbm_analytic {rec['fits_hbm_analytic']} "
+          f"at {peak} B")
+    flops_ratio = (rec["cost_analysis"]["flops_per_device"]
+                   / (rec["analytic"]["flops"] / rec["n_devices"]))
+    check(FLOP_RATIO[0] < flops_ratio < FLOP_RATIO[1],
+          f"phase 15c {arch}: traced/analytic FLOPs {flops_ratio}")
+    print(f"  15c {arch} x {shape} on a fake (16, 16) group, fake cuda "
+          f"tensors, torch {rec['torch_version']}: trace "
+          f"{rec['trace_s']:.3f} s, subprocess {wall:.3f} s, traced peak "
+          f"{rec['memory']['peak_bytes_per_device'] / 1e9:.4f} GB a device, "
+          f"analytic {peak / 1e9:.4f} GB (fits 80 GB: "
+          f"{rec['fits_hbm_analytic']}), collectives "
+          f"{rec['collectives']['total']:.6e} B a device, traced/analytic "
+          f"FLOPs {flops_ratio:.4f}, {rec.get('n_microbatches')} "
+          f"microbatches, kernel launches {rec['kernel_launches']} [{card}]")
+    return {"cell": f"{arch} x {shape}", "trace_s": rec["trace_s"],
+            "wall_s": wall,
+            "peak_bytes_per_device": rec["memory"]["peak_bytes_per_device"],
+            "analytic_peak_bytes_per_device": peak,
+            "fits_hbm_analytic": rec["fits_hbm_analytic"],
+            "collectives": rec["collectives"],
+            "flops_per_device": rec["cost_analysis"]["flops_per_device"],
+            "traced_over_analytic_flops": flops_ratio,
+            "n_microbatches": rec.get("n_microbatches"),
+            "terms": rec["terms"], "torch_version": rec["torch_version"],
+            "kernel_launches": rec["kernel_launches"]}
+
+
+def phase_save_tp_out(torch, dev, card: str, training: dict) -> dict:
+    """15d. 13c's plan path (a Trainer on the one-card grid, 13c's seed,
+    batches and schedule) for SAVE_TP_STEPS steps with the
+    ``save_tp_out`` remat policy: losses and grad norms against 13c's
+    first steps (rel SAVE_TP_TOL; whether bit for bit), K3 and the fused
+    backward launched exactly as in 13c, ms a step and peak memory."""
+    from repro_torch import configs
+    from repro_torch.core import DeviceGrid
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer
+    cfg = configs.get("hymba-1.5b")
+    n_ssm = sum(s.n_layers for s in tf.build_segments(cfg) if s.ssm)
+    print(f"phase 15d: 13c's plan path with remat_policy='save_tp_out', "
+          f"{SAVE_TP_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} in "
+          f"{TRAIN_MICROBATCHES} microbatches")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_gb = torch.cuda.memory_allocated(dev) / 1e9
+    trainer = Trainer(cfg, DeviceGrid([dev]), global_batch=TRAIN_BATCH,
+                      seq=TRAIN_SEQ, hyper=adamw.Hyper(lr=TRAIN_LR),
+                      n_microbatches=TRAIN_MICROBATCHES,
+                      warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+                      remat_policy="save_tp_out")
+    ms_ops.LAUNCHES = ms_ops.SSM_BWD_LAUNCHES = ms_ops.BWD_LAUNCHES = 0
+    hist = trainer.run(SAVE_TP_STEPS, log_every=0)    # phase 15d's window
+    torch.cuda.synchronize()
+    launches = (ms_ops.LAUNCHES, ms_ops.SSM_BWD_LAUNCHES, ms_ops.BWD_LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del trainer
+    torch.cuda.empty_cache()
+    per_step = (2 * n_ssm * TRAIN_MICROBATCHES, n_ssm * TRAIN_MICROBATCHES, 0)
+    check(launches == tuple(SAVE_TP_STEPS * n for n in per_step),
+          f"phase 15d launched K3, the fused backward and K3-bwd {launches} "
+          f"times, want {per_step} a step")
+    rows, bitwise = [], True
+    for i, h in enumerate(hist):
+        want_loss, want_gn = training["losses"][i], training["grad_norms"][i]
+        rel = max(abs(h["loss"] - want_loss) / abs(want_loss),
+                  abs(h["grad_norm"] - want_gn) / abs(want_gn))
+        same = h["loss"] == want_loss and h["grad_norm"] == want_gn
+        bitwise = bitwise and same
+        rows.append({"step": i, "loss": h["loss"], "plan_loss": want_loss,
+                     "grad_norm": h["grad_norm"], "plan_grad_norm": want_gn,
+                     "max_rel": rel, "bitwise": same})
+        check(rel <= SAVE_TP_TOL, f"phase 15d step {i}: loss/grad norm "
+              f"{h['loss']}/{h['grad_norm']} vs 13c {want_loss}/{want_gn}: "
+              f"rel {rel:.3e} over {SAVE_TP_TOL}")
+    step_ms = [1e3 * h["step_s"] for h in hist]
+    print(f"  per step save_tp_out vs 13c: "
+          + "; ".join(f"{r['loss']:.6f}/{r['plan_loss']:.6f} gnorm "
+                      f"{r['grad_norm']:.6f}/{r['plan_grad_norm']:.6f}"
+                      for r in rows)
+          + f"; bit for bit: {bitwise}")
+    print(f"  {step_ms[-1]:.1f} ms the last step (step 0 {step_ms[0]:.1f} "
+          f"ms; 13c {training['step_ms']:.1f} ms a step), peak memory "
+          f"{peak_gb:.2f} GB ({base_gb:.2f} GB held before; 13c "
+          f"{training['peak_memory_gb']:.2f} GB); K3 {per_step[0]}, the "
+          f"fused backward {per_step[1]} and K3-bwd {per_step[2]} launches "
+          f"a step [{card}]")
+    return {"steps": rows, "bitwise": bitwise, "step_ms_all": step_ms,
+            "peak_memory_gb": peak_gb, "memory_before_gb": base_gb,
+            "launches": launches}
 
 
 def kernel_entry(name, source, replaces, launches, err, rows,
@@ -2958,6 +3264,16 @@ def run(torch) -> int:
     ep_combine = phase_ep_combine(torch, dev, card)
     plan_s = time.perf_counter() - t_plan
     print(f"  phase 14: {plan_s:.3f} s wall")
+    t_roof = time.perf_counter()
+    analytic_rec = phase_analytic(torch, dev, card, training, serving)
+    stage_cost = phase_stage_cost(torch, dev, card)
+    save_tp = phase_save_tp_out(torch, dev, card, training)
+    print(f"phase 15c: the dry-run of {DRYRUN_CELL}")
+    dryrun = phase_dryrun(card)
+    dry_launches = [dryrun["kernel_launches"][k]
+                    for k in ("mamba_scan", "mamba_ssm_bwd")]
+    roof_s = time.perf_counter() - t_roof
+    print(f"  phase 15: {roof_s:.3f} s wall")
     t_bytes = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S
     t_ops = sum(s["flops"] for s in shapes) / FP32_FLOP_PER_S
     record = {"kernels": [{
@@ -3002,7 +3318,9 @@ def run(torch) -> int:
         "launches_engine": engine_launches,
         "launches_train": training["k3_launches"],
         "launches_hybrid": hybrid["k3_launches"],
-        "launches_plain": plan_vs_plain["launches_plain"][0]}, kernel_entry(
+        "launches_plain": plan_vs_plain["launches_plain"][0],
+        "launches_save_tp_out": save_tp["launches"][0],
+        "launches_dryrun": dry_launches[0]}, kernel_entry(
         "mamba_scan_bwd",
         "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu",
         "src/repro/models/layers/mamba.py:62", training["k3_bwd_launches"],
@@ -3015,6 +3333,8 @@ def run(torch) -> int:
         "max_rel_err_sums": ssm_sum_err, "exp_max_ulp": ssm_ulps,
         "launches_hybrid": hybrid["ssm_bwd_launches"],
         "launches_plain": plan_vs_plain["launches_plain"][1],
+        "launches_save_tp_out": save_tp["launches"][1],
+        "launches_dryrun": dry_launches[1],
         "layer_grad_max_rel_err": layer_grad_err,
         "replaced_ms": sum(r["replaced_ms"] for r in ssm_rows)}],
         "main_path_wall_ms": {f"{n}/{p}": 1e3 * t
@@ -3029,7 +3349,9 @@ def run(torch) -> int:
         "hymba_sublayer_ms": sublayers, "serving_engine": engine,
         "training": training, "hybrid_pipeline": hybrid,
         "phase_13_s": train_s, "plan_vs_plain": plan_vs_plain,
-        "ep_combine": ep_combine, "phase_14_s": plan_s}
+        "ep_combine": ep_combine, "phase_14_s": plan_s,
+        "analytic": analytic_rec, "stage_cost": stage_cost,
+        "dryrun": dryrun, "save_tp_out": save_tp, "phase_15_s": roof_s}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

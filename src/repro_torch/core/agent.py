@@ -119,6 +119,14 @@ class Agent:
         if self._thread is not None:
             self._thread.join(timeout=5)
         self._pool.shutdown(wait=False, cancel_futures=True)
+        # let go of the work this agent ran: a finished CU's function may
+        # close over its caller (a Session stage's job holds the Session,
+        # whose pilots hold this agent), and such a cycle would keep the
+        # function's data (a trainer's state on the card) until ``gc``
+        with self._lock:
+            self._executor_cache.clear()
+            self._cus = {uid: cu for uid, cu in self._cus.items()
+                         if not cu.done}
 
     def kill(self) -> None:
         """Chaos: the agent process crashes.  Unlike :meth:`stop` there

@@ -537,8 +537,11 @@ class Session:
             seen.add(name)
             order.append(by_name[name])
 
-        for s in stages:
-            visit(s.name)
+        try:
+            for s in stages:
+                visit(s.name)
+        finally:
+            del visit      # the recursive closure is a cycle of its own
         return order
 
     def submit_dag(self, stages: Sequence[Stage], *,

@@ -17,6 +17,16 @@ tail ``a = exp(dt A)``, ``b = u Bc``, counted in ``SSM_BWD_LAUNCHES``.
 is what the model calls.  Under ``no_grad`` or ``inference_mode`` either
 Function's ``apply`` runs the forward alone and records nothing, so
 inference launches exactly the forward kernel.
+
+Fake tensors (``FakeTensorMode``, the dry-run's trace) meet a shape rule
+in each wrapper, ahead of the device checks: outputs of the kernel's
+shapes, dtypes and device, with no launch, no count and no plain
+version.  Meta tensors are not fake and still raise.  Under a dispatch
+mode (``FlopCounterMode``) every wrapper also issues
+``repro_torch::selective_scan_cost``, an op that computes nothing and
+whose registered FLOP formula is the analytic model's (the
+associative-scan term and the C readout; a backward twice that), so the
+counter sees the scan as ``roofline.analytic`` counts it.
 """
 from __future__ import annotations
 
@@ -24,8 +34,11 @@ import threading
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import autotune
+from repro_torch.roofline.terms import ssm_scan_terms
 from . import mamba_scan as kernel
 from . import ref
 
@@ -33,6 +46,31 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 SSM_BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
+
+
+@torch.library.custom_op("repro_torch::selective_scan_cost", mutates_args=())
+def _scan_cost(a: torch.Tensor, C: torch.Tensor, backward: bool) -> None:
+    """Computes nothing: a mark for ``FlopCounterMode`` of one scan
+    (a: (B,S,di) or (B,S,di,st), C: (B,S,st)), forward or backward."""
+
+
+@_scan_cost.register_fake
+def _(a, C, backward):
+    return None
+
+
+@register_flop_formula(torch.ops.repro_torch.selective_scan_cost)
+def _scan_flops(a_shape, C_shape, backward, out_shape=None, **kwargs) -> int:
+    B, S, di = a_shape[:3]
+    # the terms of roofline.analytic._ssm_flops; a backward is 2x
+    fwd = sum(ssm_scan_terms(B, S, di, C_shape[-1]))
+    return 2 * fwd if backward else fwd
+
+
+def _mark(a: torch.Tensor, C: torch.Tensor, backward: bool) -> None:
+    """Issue the cost mark when a dispatch mode could read it."""
+    if isinstance(a, FakeTensor) or torch._C._len_torch_dispatch_stack():
+        _scan_cost(a, C, backward)
 
 
 def resolve_blocks(S: int, di: int, st: int, dtype: torch.dtype, device,
@@ -54,6 +92,12 @@ def scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
          bs: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Selective scan. a,b: (B,S,di,st); C: (B,S,st); h0: (B,di,st), f32
     or bf16 (upcast) -> (y (B,S,di) f32, h_last (B,di,st) f32)."""
+    _mark(a, C, False)
+    if isinstance(a, FakeTensor):                  # shape rule only
+        B, S, di, st = a.shape
+        f32 = torch.float32
+        return (a.new_empty((B, S, di), dtype=f32),
+                a.new_empty((B, di, st), dtype=f32))
     if a.device.type == "cpu":
         return ref.scan(a, b, C, h0)
     if a.device.type != "cuda":
@@ -105,6 +149,10 @@ def scan_backward(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
     """The backward of :func:`scan`: cotangents dy (B,S,di) and dh_last
     (B,di,st), either None for zero -> (da, db, dC, dh0) in the inputs'
     dtypes, None where `need` is False."""
+    _mark(a, C, True)
+    if isinstance(a, FakeTensor):                  # shape rule only
+        return tuple(t.new_empty(t.shape) if n else None
+                     for t, n in zip((a, b, C, h0), need))
     if a.device.type == "cpu":
         out = ref.scan_backward(a, b, C, h0, dy, dh_last)
         return tuple(g if n else None for g, n in zip(out, need))
@@ -175,6 +223,10 @@ def ssm_backward(dt: torch.Tensor, A: torch.Tensor, u: torch.Tensor,
     dt, u (B,S,di), A (di,st), Bc, C (B,S,st), h0 (B,di,st), all f32, and
     cotangents dy (B,S,di), dh_last (B,di,st), either None for zero ->
     (ddt, dA, du, dBc, dC, dh0), f32."""
+    _mark(dt, C, True)
+    if isinstance(dt, FakeTensor):                 # shape rule only
+        return tuple(t.new_empty(t.shape)
+                     for t in (dt, A, u, Bc, C, h0))
     if dt.device.type == "cpu":
         return ref.ssm_backward(dt, A, u, Bc, C, h0, dy, dh_last)
     if dt.device.type != "cuda":

@@ -172,7 +172,6 @@ def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     the kv head of each of its query heads.  One all-reduce sums the
     heads' outputs.
     """
-    S = x.shape[1]
     h = cfg.n_heads
     wk, wv = p["wk"], p["wv"]
     if tp is not None:
@@ -182,6 +181,7 @@ def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
             group = cfg.n_heads // cfg.n_kv_heads
             idx = (tp.rank * h + torch.arange(h, device=x.device)) // group
             wk, wv = wk.index_select(1, idx), wv.index_select(1, idx)
+    S = x.shape[1]      # after copy_in: the whole sequence
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if kv_override is None:
         k = torch.einsum("bsd,dhk->bshk", x, wk)

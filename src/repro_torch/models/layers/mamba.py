@@ -110,7 +110,6 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor, tp=None,
     every other weight arrives as its di shard.  The scan is per channel,
     so K3 and its backward run on the rank's channels with no
     communication; ``x_proj`` and ``out_proj`` each need one all-reduce."""
-    B, S, _ = x.shape
     di, st, dc = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.ssm_d_conv
     if tp is None:
         xz = x @ p["in_proj"]
@@ -122,6 +121,7 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor, tp=None,
         half = w.shape[-1] // 2
         xz = x @ torch.cat([w[:, lo:lo + di], w[:, half + lo:half + lo + di]],
                            dim=-1)
+    B, S, _ = x.shape   # after copy_in: the whole sequence
     x1, z = torch.chunk(xz, 2, dim=-1)
     x1_pre = x1
     x1 = F.silu(_causal_conv(p, x1).float()).to(x.dtype)

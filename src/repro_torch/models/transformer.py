@@ -37,16 +37,31 @@ FSDP axis inside the layer (inside its remat), attention heads, MLP
 width, SSM channels and the vocab split over "model" where they divide,
 the experts too with ``moe_ep_axis``.  The vocab-sharded CE takes the
 log-sum-exp over the shards with a max and a sum all-reduce; the logits
-are never gathered.  ``save_spec`` and the ``save_tp_out`` remat policy
-wait for the dry-run (ROADMAP Queue 1, item 17): ``loss_fn`` raises on a
-``remat_policy``.
+are never gathered.  With ``act_spec=Plan.act_spec(sp=True)`` the step
+is sequence-parallel (Megatron-style): between sublayers each rank holds
+its chunk of the sequence, and runs the norms on it; a tensor-parallel
+sublayer gathers the sequence on entry and reduce-scatters its output
+(``parallel.SeqGroup``), any other sublayer (the MoE router and experts
+included) runs on the gathered sequence and keeps its chunk.
+
+Remat policies (``REMAT_POLICIES``, ``loss_fn(remat_policy=...)``): the
+reference's ``save_tp_out`` becomes selective activation checkpointing
+(``create_selective_checkpoint_contexts``).  Its policy saves the
+outputs of the TP collectives, the all-reduces (reduce-scatters under
+sequence parallelism) that end each sharded sublayer
+(``parallel.TP_OUT_OPS``), so the recompute in backward does
+not issue them again: 4 instead of 6 residual-stream collectives a layer
+(the two recomputed sums go, the two gradient sums of ``copy_in`` stay).
+On one device no collective runs and the policy changes nothing.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import attention as attn_lib
@@ -56,6 +71,22 @@ from repro_torch.sharding.parallel import GATHER, SHARD, SLICE
 from repro_torch.util import Device, resolve_device, tree_map
 
 Params = Dict[str, Any]
+
+
+def _save_tp_out(ctx, op, *args, **kwargs):
+    """Selective remat: keep the TP collectives' outputs, recompute the
+    rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in parallel.TP_OUT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_POLICIES = {
+    None: None,
+    # save the TP-collective outputs: backward skips recomputing the
+    # attention/FFN output sums (4 instead of 6 residual-stream
+    # collectives per layer); costs the saved outputs per layer
+    "save_tp_out": _save_tp_out,
+}
 
 
 class Segment(NamedTuple):
@@ -133,7 +164,8 @@ def _block_groups(cfg, seg: Segment, ctx, moe_ep_axis) -> Dict[str, Any]:
     weights' uses from them."""
     if ctx is None:
         return {}
-    groups = {"attn": ctx.tp_for(cfg.n_heads) if seg.attn == "gqa" else None,
+    groups = {"seq": ctx.seq,
+              "attn": ctx.tp_for(cfg.n_heads) if seg.attn == "gqa" else None,
               "ssm": ctx.tp_for(cfg.ssm_d_inner) if seg.ssm else None,
               "mlp": ctx.tp_for(seg.d_ff) if seg.ffn == "mlp" else None}
     if seg.ffn == "moe":
@@ -146,14 +178,18 @@ def _block_uses(p: Params, groups: Dict[str, Any]) -> Any:
     """How a sharded block uses each of its weights' model-axis shards
     (see ``sharding.parallel``): a sublayer with a group computes on its
     weights' shards (Mamba on its x and z columns of ``in_proj``, a
-    SLICE; the router is whole), any other gathers them."""
+    SLICE; the router is whole), any other gathers them.  Under sequence
+    parallelism the norms run on the rank's sequence chunk: a SLICE, so
+    their gradients are summed over the model axis."""
     def all_(tree, group):
         return tree_map(lambda _: GATHER if group is None else SHARD, tree)
 
     out = {}
     for key, sub in p.items():
         group = groups.get(key)
-        if key == "ssm" and group is not None:
+        if key.startswith("ln") and groups.get("seq") is not None:
+            out[key] = tree_map(lambda _: SLICE, sub)
+        elif key == "ssm" and group is not None:
             out[key] = {k: SLICE if k == "in_proj" else SHARD for k in sub}
         elif key == "moe":
             out[key] = {k: (all_(v, groups["shared"]) if k == "shared" else
@@ -164,6 +200,23 @@ def _block_uses(p: Params, groups: Dict[str, Any]) -> Any:
     return out
 
 
+def _on_sequence(groups, key: Optional[str], fn, h):
+    """``fn(h, tp) -> (out, extra)``, a sublayer on `h`.  Without
+    sequence parallelism `tp` is the sublayer's group (``groups[key]``).
+    With it `h` is this rank's sequence chunk: a tensor-parallel sublayer
+    gets the model axis's ``SeqGroup`` (it gathers the sequence on entry
+    and reduce-scatters its output), any other runs replicated on the
+    gathered sequence and keeps its chunk of the output."""
+    group = groups.get(key)
+    seq = groups.get("seq")
+    if seq is None:
+        return fn(h, group)
+    if group is not None:
+        return fn(h, seq)
+    out, extra = fn(seq.gather(h), None)
+    return seq.scatter(out), extra
+
+
 def _mixer_forward(cfg, seg: Segment, p: Params, x, positions, groups,
                    k_valid=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Token-mixing sublayer(s) on a full sequence; returns (dx, cache).
@@ -172,18 +225,21 @@ def _mixer_forward(cfg, seg: Segment, p: Params, x, positions, groups,
     cache: Dict[str, Any] = {}
     parts = []
     if seg.attn == "gqa":
-        a, kv = attn_lib.gqa_forward(
-            cfg, p["attn"], h, positions, causal=seg.causal,
-            window=seg.window, k_valid=k_valid, tp=groups.get("attn"))
+        a, kv = _on_sequence(groups, "attn", lambda h_, tp: (
+            attn_lib.gqa_forward(cfg, p["attn"], h_, positions,
+                                 causal=seg.causal, window=seg.window,
+                                 k_valid=k_valid, tp=tp)), h)
         cache.update(kv)
         parts.append(a)
     elif seg.attn == "mla":
-        a, kv = attn_lib.mla_forward(cfg, p["attn"], h, positions,
-                                     k_valid=k_valid)
+        a, kv = _on_sequence(groups, None, lambda h_, _: (
+            attn_lib.mla_forward(cfg, p["attn"], h_, positions,
+                                 k_valid=k_valid)), h)
         cache.update(kv)
         parts.append(a)
     if seg.ssm:
-        s, sc = mamba_lib.mamba_forward(cfg, p["ssm"], h, groups.get("ssm"))
+        s, sc = _on_sequence(groups, "ssm", lambda h_, tp: (
+            mamba_lib.mamba_forward(cfg, p["ssm"], h_, tp)), h)
         cache.update(sc)
         parts.append(s)
     if len(parts) == 2:  # Hymba fusion: mean of per-branch RMS-normed outputs
@@ -210,18 +266,22 @@ def block_forward(cfg, seg: Segment, p: Params, x, positions, enc_out=None,
         h = common.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
         k = torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wk"])
         v = torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wv"])
-        c, ckv = attn_lib.gqa_forward(cfg, p["cross"], h, positions,
-                                      causal=False, kv_override=(k, v))
+        c, ckv = _on_sequence(groups, None, lambda h_, _: (
+            attn_lib.gqa_forward(cfg, p["cross"], h_, positions,
+                                 causal=False, kv_override=(k, v))), h)
         cache["xk"], cache["xv"] = ckv["k"], ckv["v"]
         x = x + c
     if seg.ffn:
         h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
         if seg.ffn == "mlp":
-            x = x + common.mlp(p["mlp"], h, groups.get("mlp"))
+            out, _ = _on_sequence(groups, "mlp", lambda h_, tp: (
+                common.mlp(p["mlp"], h_, tp), None), h)
         else:
-            out, aux = moe_lib.moe_forward(cfg, p["moe"], h, groups=moe_groups,
-                                           ep_axis=moe_ep_axis, ctx=ctx)
-            x = x + out
+            # the router and the experts see the whole sequence
+            out, aux = _on_sequence(groups, None, lambda h_, _: (
+                moe_lib.moe_forward(cfg, p["moe"], h_, groups=moe_groups,
+                                    ep_axis=moe_ep_axis, ctx=ctx)), h)
+        x = x + out
     return x, cache, aux
 
 
@@ -303,29 +363,36 @@ def _layer(seg_params: Params, i: int) -> Params:
 
 
 def _remat_block(cfg, seg: Segment, lp: Params, x, positions, enc_out,
-                 moe_groups: int, moe_ep_axis, ctx=None, uses=None):
+                 moe_groups: int, moe_ep_axis, ctx=None, uses=None,
+                 policy=None):
     """block_forward under ``torch.utils.checkpoint``: only the layer's
-    input is kept, and backward recomputes the layer.  Returns (x, aux);
-    a training forward keeps no cache.  On a sharded step the layer's
-    params are gathered inside, so backward gathers them again and no
-    gathered copy outlives the layer."""
+    input is kept (and what `policy`, a ``REMAT_POLICIES`` value, saves),
+    and backward recomputes the layer.  Returns (x, aux); a training
+    forward keeps no cache.  On a sharded step the layer's params are
+    gathered inside, so backward gathers them again and no gathered copy
+    outlives the layer."""
     def body(x, lp, enc_out):
         if ctx is not None:
             lp = ctx.localize_tree(lp, uses)
         y, _, aux = block_forward(cfg, seg, lp, x, positions, enc_out,
                                   moe_groups, moe_ep_axis, ctx=ctx)
         return y, aux
-    return checkpoint(body, x, lp, enc_out, use_reentrant=False)
+    if policy is None:
+        return checkpoint(body, x, lp, enc_out, use_reentrant=False)
+    return checkpoint(body, x, lp, enc_out, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts, policy))
 
 
 def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
                   remat: bool = False, want_cache: bool = False,
                   moe_groups: int = 1, moe_ep_axis=None, k_valid=None,
-                  ctx=None):
+                  ctx=None, remat_policy=None):
     """Run each segment layer by layer; returns (x, per-segment stacked
     caches, aux sum).  With `remat` (and autograd recording) each layer
-    is rematerialized in backward (no caches, no pad mask).  With `ctx`
-    each layer's params are DTensor views gathered at the layer."""
+    is rematerialized in backward (no caches, no pad mask), keeping what
+    `remat_policy` names.  With `ctx` each layer's params are DTensor
+    views gathered at the layer."""
     # no _grad_dtype_guard: a bf16 residual stream already gets a bf16
     # gradient in PyTorch
     remat = remat and torch.is_grad_enabled()
@@ -341,7 +408,7 @@ def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
             if remat:
                 x, aux = _remat_block(cfg, seg, _layer(sp, i), x, positions,
                                       enc_out, moe_groups, moe_ep_axis, ctx,
-                                      uses)
+                                      uses, REMAT_POLICIES[remat_policy])
                 auxes.append(aux)
                 continue
             lp = _layer(sp, i)
@@ -384,12 +451,31 @@ def _encode(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     """The encoder stack of enc-dec archs over the stub frame embeddings."""
     enc_x = batch["frame_embeds"].to(cfg.param_dtype)
     enc_segs = build_segments(cfg, role="encoder")
+    positions = torch.arange(enc_x.shape[1], device=enc_x.device)
     enc_out, _, _ = _run_segments(
-        cfg, enc_segs, params["enc_segments"], enc_x,
-        torch.arange(enc_x.shape[1], device=enc_x.device), remat=remat,
-        ctx=ctx)
-    return common.rmsnorm({"scale": _top(params["enc_final_norm"], ctx,
-                                         "scale")}, enc_out, cfg.norm_eps)
+        cfg, enc_segs, params["enc_segments"], _seq_chunk(ctx, enc_x),
+        positions, remat=remat, ctx=ctx)
+    return _seq_whole(ctx, common.rmsnorm(
+        _norm_on_chunk(ctx, params["enc_final_norm"]), enc_out,
+        cfg.norm_eps))
+
+
+def _norm_on_chunk(ctx, leaf):
+    """A final norm's scale as this rank uses it: on its sequence chunk
+    under sequence parallelism (a SLICE), else whole."""
+    use = SLICE if ctx is not None and ctx.seq is not None else GATHER
+    return {"scale": _top(leaf, ctx, "scale", use)}
+
+
+def _seq_chunk(ctx, x: torch.Tensor) -> torch.Tensor:
+    """This rank's sequence chunk under sequence parallelism, else x."""
+    return x if ctx is None or ctx.seq is None else ctx.seq.scatter(x)
+
+
+def _seq_whole(ctx, x: torch.Tensor) -> torch.Tensor:
+    """The whole sequence from the ranks' chunks (sequence parallelism),
+    else x."""
+    return x if ctx is None or ctx.seq is None else ctx.seq.gather(x)
 
 
 def embed_inputs(cfg: ModelConfig, params: Params,
@@ -404,18 +490,20 @@ def embed_inputs(cfg: ModelConfig, params: Params,
 
 
 def _hidden_states(cfg, params, batch, *, remat: bool = False,
-                   moe_groups=1, moe_ep_axis=None, ctx=None):
+                   moe_groups=1, moe_ep_axis=None, ctx=None,
+                   remat_policy=None):
     """Forward to final hidden states (pre-unembed)."""
     enc_out = (_encode(cfg, params, batch, remat=remat, ctx=ctx)
                if cfg.is_encoder_decoder else None)
     x = embed_inputs(cfg, params, batch, ctx)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _, aux = _run_segments(cfg, build_segments(cfg), params["segments"],
-                              x, positions, enc_out, remat=remat,
-                              moe_groups=moe_groups, moe_ep_axis=moe_ep_axis,
-                              ctx=ctx)
-    norm = {"scale": _top(params["final_norm"], ctx, "scale")}
-    return common.rmsnorm(norm, x, cfg.norm_eps), aux
+                              _seq_chunk(ctx, x), positions, enc_out,
+                              remat=remat, moe_groups=moe_groups,
+                              moe_ep_axis=moe_ep_axis, ctx=ctx,
+                              remat_policy=remat_policy)
+    norm = _norm_on_chunk(ctx, params["final_norm"])
+    return _seq_whole(ctx, common.rmsnorm(norm, x, cfg.norm_eps)), aux
 
 
 def _sharded_step(params: Params, batch: Dict[str, Any], act_spec):
@@ -458,22 +546,23 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor, tp
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, aux_coef: float = 0.01, remat: bool = True, act_spec=None,
-            moe_groups: int = 1, moe_ep_axis=None, remat_policy=None
-            ) -> torch.Tensor:
+            moe_groups: int = 1, moe_ep_axis=None,
+            remat_policy=None) -> torch.Tensor:
     """Mean next-token NLL plus `aux_coef` times the MoE aux loss;
     differentiable (``loss.backward()`` or ``torch.autograd.grad``).
     On a sharded step (DTensor params) it is the global batch's loss on
     every rank, and the gradients reach the DTensor params in their own
-    placements.  ``remat_policy`` (the reference's ``save_tp_out``) is
-    not ported and raises."""
-    if remat_policy is not None:
-        raise NotImplementedError(
-            f"loss_fn: remat_policy={remat_policy!r} is not ported; it waits "
-            "for the dry-run (ROADMAP Queue 1, item 17)")
+    placements.  ``remat_policy`` names a ``REMAT_POLICIES`` entry (an
+    unknown name raises).  ``act_spec=Plan.act_spec(sp=True)`` runs the
+    step sequence-parallel; the outputs ``save_tp_out`` saves are then
+    kept as the TP collectives leave them, split on the sequence."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"loss_fn: unknown remat_policy {remat_policy!r}; "
+                         f"known: {sorted(k for k in REMAT_POLICIES if k)}")
     ctx, batch = _sharded_step(params, batch, act_spec)
     x, aux = _hidden_states(cfg, params, batch, remat=remat,
                             moe_groups=moe_groups, moe_ep_axis=moe_ep_axis,
-                            ctx=ctx)
+                            ctx=ctx, remat_policy=remat_policy)
     tp = _vocab_tp(cfg, ctx)
     table = _table(cfg, params, ctx)
     labels, mask = batch["labels"], batch["mask"].float()

@@ -4,7 +4,9 @@ The placer (core/session.py) prices *bytes* — locality and movement —
 but a score that is blind to compute speed sends a compute-bound HPC
 stage and a memory-bound analytics stage to the same pilot whenever
 their input bytes match.  This module closes that gap: a stage may
-carry a :class:`StageCost` (global FLOPs + HBM traffic), each pilot
+carry a :class:`StageCost` (global FLOPs + HBM traffic, given directly
+or derived from a :class:`~repro_torch.models.config.ModelConfig` through
+the analytic model), each pilot
 advertises per-chip peak FLOP/s and HBM bandwidth in its description,
 and :func:`est_runtime` turns the pair into the roofline time
 ``max(compute_s, memory_s)`` on that pilot — the ``− est_runtime`` term
@@ -22,8 +24,13 @@ from typing import Dict, Optional
 
 @dataclasses.dataclass(frozen=True)
 class StageCost:
-    """Global cost of one stage execution (whole stage, all chips):
-    the raw numbers ``flops`` and ``hbm_bytes``."""
+    """Global cost of one stage execution (whole stage, all chips).
+
+    Either hand the placer raw numbers (``flops``, ``hbm_bytes``) or
+    build one from a model config via :meth:`from_model`, which routes
+    through the loop-aware analytic model in
+    :mod:`repro_torch.roofline.analytic`.
+    """
     flops: float = 0.0          # total FLOPs for one execution
     hbm_bytes: float = 0.0      # total HBM traffic for one execution
 
@@ -31,6 +38,16 @@ class StageCost:
         if self.flops < 0 or self.hbm_bytes < 0:
             raise ValueError(f"StageCost terms must be >= 0, got "
                              f"flops={self.flops} hbm_bytes={self.hbm_bytes}")
+
+    @classmethod
+    def from_model(cls, cfg, shape, *, n_devices: int, tp: int = 16,
+                   n_microbatches: int = 1) -> "StageCost":
+        """Analytic estimate for a (ModelConfig x ShapeConfig) cell —
+        the same numbers the dry-run's roofline table reports."""
+        from repro_torch.roofline import analytic   # loads the model stack
+        c = analytic.step_cost(cfg, shape, n_devices=n_devices, tp=tp,
+                               n_microbatches=n_microbatches)
+        return cls(flops=c.flops, hbm_bytes=c.hbm_bytes)
 
     @property
     def intensity(self) -> float:

@@ -16,6 +16,14 @@ class HW:
     ici_bw: float = 450e9          # B/s per direction
 
 
+def ssm_scan_terms(B: int, S: int, di: int, st: int):
+    """The selective scan's two FLOP terms: the associative scan (~3x
+    the sequential 5 an element) and the C readout.  Shared by
+    ``analytic._ssm_flops`` and the scan kernels' FLOP formula, so the
+    two count the scan alike by construction."""
+    return 3 * 5 * B * S * di * st, 2 * B * S * di * st
+
+
 def roofline_terms(*, flops_global: float, hbm_bytes_global: float,
                    collective_bytes_per_device: float, n_chips: int,
                    model_flops: float, hw: HW = HW()) -> Dict[str, float]:

@@ -29,7 +29,11 @@ plain local tensors, with the few collectives written out
 The residual stream is every rank's batch shard (the act_spec layout:
 batch over the dp axes that divide it, replicated over "model") from the
 embedding to the loss, so the reference's per-layer ``_constrain`` has
-nothing to move here.  At one device every placement is ``Replicate``,
+nothing to move here.  Under sequence parallelism (an act_spec that
+splits the sequence over "model") it is each model rank's chunk of the
+sequence between sublayers instead (:class:`SeqGroup`): all-gathers and
+reduce-scatters on the sequence take the place of ``copy_in`` and
+``reduce_out``.  At one device every placement is ``Replicate``,
 no collective runs, and the layers compute what the plain path computes.
 """
 from __future__ import annotations
@@ -50,15 +54,55 @@ SHARD = "shard"      # computes on its own shard: gradient is the shard's
                      # gathered and each rank uses its part: SLICE)
 GATHER = "gather"    # gathers it and uses all of it on every model rank
 SLICE = "slice"      # gathers it and uses a rank-specific part of it
+                     # (or all of it on a rank-specific part of the
+                     # data: a norm on its sequence chunk)
+
+
+def _sum_out(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over a group into a fresh tensor (a functional collective):
+    the ``save_tp_out`` remat policy saves this op's output
+    (:data:`TP_OUT_OPS`), which it could not do for an in-place sum."""
+    y = torch.ops._c10d_functional.all_reduce(x, "sum", group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(y)
+
+
+def _seq_all_gather(x: torch.Tensor, g: "Group") -> torch.Tensor:
+    """The group's sequence chunks (dim 1) gathered, rank order."""
+    y = torch.ops._c10d_functional.all_gather_into_tensor(
+        x.transpose(0, 1).contiguous(), g.size, g.group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(y).transpose(0, 1)
+
+
+def _seq_reduce_scatter(x: torch.Tensor, g: "Group") -> torch.Tensor:
+    """This rank's sequence chunk (dim 1) of the sum over the group."""
+    y = torch.ops._c10d_functional.reduce_scatter_tensor(
+        x.transpose(0, 1).contiguous(), "sum", g.size, g.group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(y).transpose(0, 1)
+
+
+def _seq_chunk(x: torch.Tensor, g: "Group") -> torch.Tensor:
+    n = x.shape[1] // g.size
+    return x[:, g.rank * n:(g.rank + 1) * n]
+
+
+# the ops whose outputs are a sublayer's TP output: what the reference
+# names "tp_out" and its ``save_tp_out`` remat policy keeps (the sum that
+# ends a sharded sublayer, or its reduce-scatter under sequence
+# parallelism)
+TP_OUT_OPS = (torch.ops._c10d_functional.all_reduce.default,
+              torch.ops._c10d_functional.reduce_scatter_tensor.default)
 
 
 class _AllReduce(torch.autograd.Function):
     """Sum over a group; the gradient summed too (``grad_sum``) or passed
-    through (the forward's output feeds replicated work)."""
+    through (the forward's output feeds replicated work: a sublayer's TP
+    output, which :func:`_sum_out` computes)."""
 
     @staticmethod
     def forward(ctx, x, group, grad_sum):
         ctx.group, ctx.grad_sum = group, grad_sum
+        if not grad_sum:
+            return _sum_out(x, group)
         y = x.clone()
         dist.all_reduce(y, group=group)
         return y
@@ -84,6 +128,38 @@ class _CopyIn(torch.autograd.Function):
         g = g.clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+class _SeqGather(torch.autograd.Function):
+    """The sequence gathered from its chunks; the gradient
+    reduce-scattered (``grad_sum``: every rank's is a partial sum) or
+    sliced (every rank holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, g, grad_sum):
+        ctx.g, ctx.grad_sum = g, grad_sum
+        return _seq_all_gather(x, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_seq_reduce_scatter(grad, ctx.g) if ctx.grad_sum
+                else _seq_chunk(grad, ctx.g)), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """This rank's sequence chunk of a sum of partials (``summed``: a
+    reduce-scatter) or of a tensor every rank holds whole (a slice); the
+    gradient gathered."""
+
+    @staticmethod
+    def forward(ctx, x, g, summed):
+        ctx.g = g
+        return (_seq_reduce_scatter(x, g) if summed
+                else _seq_chunk(x, g).clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _seq_all_gather(grad.contiguous(), ctx.g), None, None
 
 
 class Group:
@@ -115,6 +191,45 @@ class Group:
             x = x.clone()
             dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
         return x
+
+
+class SeqGroup:
+    """The model axis under sequence parallelism (Megatron-style): the
+    residual stream between sublayers is each rank's chunk of the
+    sequence.  A tensor-parallel sublayer takes this in place of its
+    :class:`Group`: :meth:`copy_in` gathers the sequence (its gradient
+    reduce-scattered) and :meth:`reduce_out` reduce-scatters the
+    shards' partial sums (its gradient gathered); the sums inside a
+    sublayer (:meth:`all_reduce`, :meth:`max`) are the group's own.  A
+    sublayer that runs replicated gets :meth:`gather`'s whole sequence
+    and leaves through :meth:`scatter`, this rank's chunk."""
+
+    def __init__(self, group: Group):
+        self.base = group
+        self.name, self.size, self.rank = group.name, group.size, group.rank
+        self.group = group.group
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        return _SeqGather.apply(x, self.base, True)
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        return _SeqScatter.apply(x, self.base, True)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return self.base.all_reduce(x)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return self.base.max(x)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _SeqGather.apply(x, self.base, False)
+
+    def scatter(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] % self.size:
+            raise ValueError(
+                f"sequence parallelism: a sequence of {x.shape[1]} does "
+                f"not split over the {self.size} ranks of {self.name!r}")
+        return _SeqScatter.apply(x, self.base, False)
 
 
 def is_sharded(tree: Any) -> bool:
@@ -162,11 +277,14 @@ def local(t: torch.Tensor) -> torch.Tensor:
 
 class Ctx:
     """The mesh as one step of the model sees it: which axes split the
-    batch, and the tensor-parallel axis."""
+    batch, the tensor-parallel axis, and (``sp``) whether the residual
+    stream is split on the sequence over it (``seq``, a
+    :class:`SeqGroup`; None without sequence parallelism or without a
+    model axis to split over)."""
 
     tp_axis = "model"        # the axis the planner's TP roles use
 
-    def __init__(self, mesh, batch_axes: Sequence[str]):
+    def __init__(self, mesh, batch_axes: Sequence[str], sp: bool = False):
         self.mesh = mesh
         self.names = tuple(mesh.mesh_dim_names)
         self.batch_axes = tuple(batch_axes)
@@ -174,9 +292,12 @@ class Ctx:
         self.n_batch = 1
         for g in self.batch:
             self.n_batch *= g.size
+        # a batch split over the model axis too (pure data parallelism)
+        # runs no TP: each rank's rows need the whole layer
         tp = (Group(mesh, self.tp_axis) if self.tp_axis in self.names
-              else None)
+              and self.tp_axis not in self.batch_axes else None)
         self.tp = tp if tp is not None and tp.size > 1 else None
+        self.seq = SeqGroup(self.tp) if sp and self.tp is not None else None
 
     # ------------------------------------------------------- TP modes
     def tp_on(self, n: int) -> bool:
@@ -190,7 +311,8 @@ class Ctx:
                  ) -> Optional[Group]:
         """The expert-parallel group, when `ep_axis` is in the mesh and
         divides the experts (the reference's condition); else None."""
-        if ep_axis is None or ep_axis not in self.names:
+        if (ep_axis is None or ep_axis not in self.names
+                or ep_axis in self.batch_axes):
             return None
         g = Group(self.mesh, ep_axis)
         if n_experts % g.size:
@@ -269,22 +391,37 @@ def context(params: Any, batch: Dict[str, Any], *, act_spec=None
     """The step's :class:`Ctx` when `params` are DTensors (else None, the
     one-device path).  The batch is split as ``Plan.batch_specs`` splits
     it, over the act_spec's batch axes (default: the plan's, "pod" and
-    "data")."""
+    "data"); an act_spec that splits the sequence over the model axis
+    (``Plan.act_spec(sp=True)``) turns on sequence parallelism."""
     leaf = next((t for t in tree_leaves(params) if isinstance(t, DTensor)),
                 None)
     if leaf is None:
         return None
     mesh = leaf.device_mesh
     plan = Plan.for_mesh(mesh)
+    sp = False
     if act_spec is not None:
-        if any(e is not None for e in tuple(act_spec)[1:]):
+        sp = seq_axis(act_spec) == Ctx.tp_axis
+        rest = tuple(act_spec)[2:] if sp else tuple(act_spec)[1:]
+        if any(e is not None for e in rest):
             raise NotImplementedError(
-                f"act_spec {act_spec}: only the batch dim is split here "
-                "(no sequence parallelism)")
+                f"act_spec {act_spec}: only the batch dim, and the "
+                f"sequence over {Ctx.tp_axis!r}, are split here")
         first = tuple(act_spec)[0]
+        if sp and first is not None and Ctx.tp_axis in (
+                (first,) if isinstance(first, str) else tuple(first)):
+            raise NotImplementedError(
+                f"act_spec {act_spec}: the batch and the sequence both "
+                f"split over {Ctx.tp_axis!r}")
         axes = (() if first is None else
                 (first,) if isinstance(first, str) else tuple(first))
         plan = dataclasses.replace(plan, dp_axes=axes)
     size = next(iter(batch.values())).shape[0]
     return Ctx(mesh, [a for a in plan._dp(size) or ()
-                      if plan.mesh_axes[a] > 1])
+                      if plan.mesh_axes[a] > 1], sp=sp)
+
+
+def seq_axis(spec) -> Optional[str]:
+    """The axis a (B, S, D) activation spec splits the sequence over."""
+    entries = tuple(spec) if spec is not None else ()
+    return entries[1] if len(entries) > 1 else None

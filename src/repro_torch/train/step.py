@@ -19,8 +19,14 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+# loaded here, not lazily: torch imports ``torch._dynamo`` at the first
+# call of a function it marks ``_disable_dynamo`` (checkpoint, DTensor's
+# redistribute), and that import leaves a frame cycle holding its
+# caller's stack, a train state included, until ``gc`` runs
+import torch._dynamo  # noqa: F401
 from torch.distributed.tensor import DTensor
 
+from repro_torch.core.resource_manager import HBM_BYTES_PER_CHIP
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, schedule
@@ -50,8 +56,10 @@ def abstract_train_state(cfg: ModelConfig,
 
 
 def microbatch_count(cfg: ModelConfig, global_batch: int, seq: int,
-                     n_devices: int, hbm_bytes: float = 16e9) -> int:
-    """Pick a grad-accumulation factor so stored activations fit HBM.
+                     n_devices: int,
+                     hbm_bytes: float = HBM_BYTES_PER_CHIP) -> int:
+    """Pick a grad-accumulation factor so stored activations fit HBM
+    (by default an H100's 80 GB).
 
     Per-layer remat stores one (mb, S, D) residual per layer; target that
     plus the optimizer footprint at ~60% of HBM.
@@ -101,7 +109,8 @@ def make_train_step(cfg: ModelConfig, *, hyper: adamw.Hyper = adamw.Hyper(),
                     accum_dtype: torch.dtype = torch.float32,
                     remat_policy=None):
     """Build the (state, batch) -> (state, metrics) step function.
-    ``remat_policy`` is passed to ``loss_fn``, which raises on any."""
+    ``remat_policy`` is passed to ``loss_fn``
+    (``transformer.REMAT_POLICIES``; an unknown name raises)."""
     lr_schedule = lr_schedule or (lambda s: schedule.warmup_cosine(s))
 
     def loss_of(params, mb):

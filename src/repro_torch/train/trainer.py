@@ -76,7 +76,8 @@ class Trainer:
                  hyper: adamw.Hyper = adamw.Hyper(lr=1e-3),
                  n_microbatches: int = 1, ckpt_dir: Optional[str] = None,
                  ckpt_every: int = 50, seed: int = 0,
-                 warmup_steps: int = 10, total_steps: int = 1000):
+                 warmup_steps: int = 10, total_steps: int = 1000,
+                 remat_policy: Optional[str] = None):
         self.cfg = cfg
         self.mesh = mesh
         self.plan = Plan.for_mesh(mesh)
@@ -88,7 +89,8 @@ class Trainer:
                             n_microbatches=n_microbatches, ckpt_dir=ckpt_dir,
                             ckpt_every=ckpt_every, seed=seed,
                             warmup_steps=warmup_steps,
-                            total_steps=total_steps)
+                            total_steps=total_steps,
+                            remat_policy=remat_policy)
         if hasattr(mesh, "mesh_dim_names"):         # inside a rank
             self.dmesh = mesh
         elif mesh.size == 1:                         # one device, inline
@@ -101,6 +103,7 @@ class Trainer:
         self._step = make_train_step(
             cfg, hyper=hyper, n_microbatches=n_microbatches,
             act_spec=self.plan.act_spec(), moe_groups=self.plan.dp_size,
+            remat_policy=remat_policy,
             lr_schedule=lambda s: schedule.warmup_cosine(
                 s, warmup=warmup_steps, total=total_steps))
         self.state: Any = None

@@ -44,6 +44,8 @@ def test_scan_covers_the_port():
             "launch/train.py"} <= rel
     assert {"sharding/__init__.py", "sharding/planner.py",
             "sharding/parallel.py", "launch/mesh.py", "launch/spmd.py"} <= rel
+    assert {"roofline/analytic.py", "roofline/collectives.py",
+            "launch/dryrun.py"} <= rel
     assert {"torch_train_e2e.py", "torch_hybrid_pipeline.py",
             "torch_serve_batch.py"} <= names
     configs = {p.name for p in (ROOT / "src" / "repro" / "configs").glob(
@@ -76,7 +78,10 @@ def test_no_jax_or_reference_imports(path):
                                     "repro_torch.sharding",
                                     "repro_torch.sharding.parallel",
                                     "repro_torch.launch.mesh",
-                                    "repro_torch.launch.spmd"])
+                                    "repro_torch.launch.spmd",
+                                    "repro_torch.roofline.analytic",
+                                    "repro_torch.roofline.collectives",
+                                    "repro_torch.launch.dryrun"])
 def test_each_entry_module_imports_first(module):
     """No import cycle: each module imports on its own in a fresh
     interpreter (the Session imports ``convert``, which needs the
@@ -92,12 +97,14 @@ def test_each_entry_module_imports_first(module):
 
 @pytest.mark.parametrize("module", ["repro_torch.core.session",
                                     "repro_torch.convert",
-                                    "repro_torch.analytics.engine"])
+                                    "repro_torch.analytics.engine",
+                                    "repro_torch.roofline"])
 def test_lower_layers_do_not_load_the_model_stack(module):
     """The core, ``convert`` and the analytics engine share their helpers
     through ``repro_torch.util``: importing one of them loads neither the
     model stack nor, through it, the selective-scan kernel, nor the
-    trainer and the checkpoints."""
+    trainer and the checkpoints.  Nor does the roofline package: its
+    analytic model is imported only by ``StageCost.from_model``."""
     import subprocess
     import sys
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -110,3 +117,20 @@ def test_lower_layers_do_not_load_the_model_stack(module):
                          text=True, timeout=120, env=env)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_importing_the_dryrun_starts_nothing():
+    """A fresh import of ``repro_torch.launch.dryrun`` initialises no
+    process group and loads no kernel build (the kernels' libraries are
+    built and loaded at their first launch only)."""
+    import subprocess
+    import sys
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    code = ("import torch.distributed as dist, repro_torch.launch.dryrun; "
+            "from repro_torch.kernels.mamba_scan import mamba_scan as k; "
+            "print(dist.is_initialized(), [f.cache_info().currsize for f in "
+            "(k.library, k.library_bwd, k.library_ssm_bwd)])")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "False [0, 0, 0]", out.stdout

@@ -2,7 +2,7 @@
 
 The cases of tests/test_session.py (all but the multi-pilot trainer,
 which waits for the training slice), tests/test_roofline_placement.py
-(all but ``StageCost.from_model``, which waits for the model stack) and
+(``StageCost.from_model``'s case is in test_torch_analytic.py) and
 the Session cases of tests/test_elastic.py, tests/test_fairshare.py and
 tests/test_staging.py run on both packages: the reference on the CPU's
 JAX devices, the port on ``[torch.device("cpu")] * n``.  Placement

@@ -88,10 +88,24 @@ def test_remat_gives_the_same_gradients(reference, arch):
         assert torch.equal(a, b), p
 
 
-def test_remat_policy_raises():
-    cfg = tconfigs.get_smoke("llama3.2-1b")
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        ttransformer.loss_fn(cfg, {}, {}, remat_policy="save_tp_out")
+def test_remat_policy_raises(reference):
+    """The name is historical (``loss_fn`` raised on every policy until
+    ``save_tp_out`` was ported).  An unknown policy name raises; the
+    ``save_tp_out`` policy runs, and on one device (no collective to
+    save) gives the no-policy loss and gradients bit for bit."""
+    arch = "llama3.2-1b"
+    cfg = tconfigs.get_smoke(arch)
+    with pytest.raises(ValueError, match="remat_policy"):
+        ttransformer.loss_fn(cfg, {}, {}, remat_policy="save_everything")
+    params_np, batch_np, _, _ = reference(arch)
+    params = params_from_numpy(params_np, "cpu")
+    batch = {k: to_tensor(v) for k, v in batch_np.items()}
+    l1, g1 = _port_grads(arch, params_np, batch_np, True)
+    l2, g2 = value_and_grad(lambda p: ttransformer.loss_fn(
+        cfg, p, batch, remat_policy="save_tp_out"), params)
+    assert torch.equal(l1, l2)
+    for (p, a), (_, b) in zip(tree_paths(g1), tree_paths(g2)):
+        assert torch.equal(a, b), p
 
 
 def test_chunked_loss_matches_jax_grads():
