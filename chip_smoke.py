@@ -121,7 +121,19 @@ Phases (any failure raises and the script exits non-zero):
      in 80 GB, no kernel launched; (d) 13c's plan path for SAVE_TP_STEPS
      steps with the ``save_tp_out`` remat policy: losses against 13c's
      (rel 1e-4; whether bit for bit), exact K3 and fused-backward counts,
-     ms a step and peak memory.
+     ms a step and peak memory;
+ 16. sharded serving on the weight-stationary serving plan: (a) 11b's
+     Hymba-1.5B run (full width and depth, bf16, the same seed, prompts
+     and 32 greedy tokens) through ``make_prefill_step`` /
+     ``make_decode_step`` on DTensor params of ``Plan(serving=True)`` on
+     a 1 x 1 ``DeviceMesh``, caches placed by ``Plan.cache_specs``: the
+     prefill's logits and caches and each step's logits against 11b's
+     (bit for bit, else 1e-4), the tokens equal, K3 32 times a prefill,
+     the prefill wall, decode ms a step and peak beside 11b's; (b) in
+     15c's subprocess, the dry-run of hymba-1.5b x ``decode_32k`` on the
+     fake (16, 16) group (the sharded decode step): keys, 0 launches,
+     collective bytes, and the traced peak a device beside the analytic
+     one and the whole weights' bytes.
 
 Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
 it and reads them after.  Phase 11b sets K3's count to 0 before it and
@@ -131,8 +143,9 @@ backward's and K3-bwd's counts to 0 before them and read them after
 (``launches_train``, ``launches_hybrid``; the fused backward's and
 K3-bwd's ``launches`` are 13c's: K3-bwd is off the model path, 0), and
 phase 14a around its plain steps (``launches_plain``), and phase 15d
-around its steps (``launches_save_tp_out``).  ``launches_dryrun`` is the
-15c subprocess's own count over its trace (0).
+around its steps (``launches_save_tp_out``), and phase 16a around its
+prefills and decode steps (``launches_serve_sharded``).
+``launches_dryrun`` is the 15c subprocess's own count over its trace (0).
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -311,10 +324,15 @@ EP_ARCH, EP_TOKENS, EP_TOL, EP_REPS = "qwen2-moe-a2.7b", 2048, 2e-2, 5
 FLOP_RATIO = (0.7, 1.4)
 # 15b: train steps of the Session stage that carries a StageCost
 STAGE_STEPS = 3
-# 15c: dry-run cells (arch, shape) on the single-pod (16, 16) mesh
-# train_4k reaches the shape rules of K3 and of the fused backward
-DRYRUN_CELL = ("hymba-1.5b", "train_4k")
+# 15c and 16b: dry-run cells (arch, shapes) on the single-pod (16, 16)
+# mesh, traced in one subprocess: train_4k reaches the shape rules of K3
+# and of the fused backward; decode_32k runs the sharded decode step on
+# the weight-stationary serving plan
+DRYRUN_CELL = ("hymba-1.5b", ("train_4k", "decode_32k"))
 DRYRUN_TIMEOUT = 600
+# 16a: the sharded serving steps against 11b's plain run, where they are
+# not bit for bit
+SHARDED_TOL = 1e-4
 # 15d: 13c's plan path with the save_tp_out remat policy
 SAVE_TP_STEPS, SAVE_TP_TOL = 2, 1e-4
 # phase 8's DCN costs per byte (benchmarks/bench_session_placement.py)
@@ -1074,12 +1092,16 @@ def _share(x) -> str:
     return f"{100 * x:.1f} %" if x is not None else "not measured"
 
 
-def serve_model(torch, dev, arch: str, B: int, S: int, new: int) -> dict:
+def serve_model(torch, dev, arch: str, B: int, S: int, new: int,
+                keep: bool = False) -> dict:
     """Serve `arch` at full width and depth in its own dtype through the
     serving steps: PREFILL_REPS prefills of B prompts of S tokens (the
     first one warms up), one more under the profiler, then the caches
     grown and `new` greedy decode steps.  K3 rises by the SSM layer count
-    per prefill and by 0 per decode step."""
+    per prefill and by 0 per decode step.  With `keep` the record holds
+    the outputs on the host under ``"_outputs"`` (the last timed
+    prefill's logits and caches, each step's logits, the tokens), for
+    phase 16a; the caller takes them out before the record is printed."""
     from repro_torch import configs
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.models import transformer as tf
@@ -1118,6 +1140,9 @@ def serve_model(torch, dev, arch: str, B: int, S: int, new: int) -> dict:
         check(tuple(logits.shape) == (B, 1, cfg.vocab_padded)
               and bool(torch.isfinite(logits[..., :V]).all()),
               f"{arch} prefill: bad logits")
+    kept = {"prefill_logits": logits.cpu(),
+            "prefill_caches": tree_map(lambda t: t.cpu(), caches),
+            "logits": []} if keep else None
     before = ms_ops.LAUNCHES
     prof = _device_profile(torch, lambda: prefill(params, batch))
     check(ms_ops.LAUNCHES - before == n_ssm, f"{arch} profiled prefill: "
@@ -1143,6 +1168,8 @@ def serve_model(torch, dev, arch: str, B: int, S: int, new: int) -> dict:
             step_ms.append(ms)
         check(bool(torch.isfinite(lg[..., :V]).all()),
               f"{arch} decode step {t}: non-finite logits")
+        if keep:
+            kept["logits"].append(lg.cpu())
         out.append(tok)
     gen_toks = torch.cat(out, dim=1)
     check(bool(((gen_toks >= 0) & (gen_toks < V)).all()),
@@ -1174,6 +1201,8 @@ def serve_model(torch, dev, arch: str, B: int, S: int, new: int) -> dict:
         for key, ms in pr["top_device_ms"]:
             print(f"      device {ms:9.4f} ms  {key}")
     print(f"    greedy tokens, row 0: {gen_toks[0, :12].tolist()} ...")
+    if keep:
+        rec["_outputs"] = kept | {"tokens": gen_toks.cpu()}
     return rec
 
 
@@ -1229,7 +1258,9 @@ def phase_serving(torch, dev) -> dict:
           "make_decode_step(sample=True))")
     recs = {}
     for arch, B, S, new in SERVE_MODELS:
-        recs[arch] = serve_model(torch, dev, arch, B, S, new)
+        # phase 16a holds the sharded steps against the first model's
+        recs[arch] = serve_model(torch, dev, arch, B, S, new,
+                                 keep=arch == SERVE_MODELS[0][0])
         torch.cuda.empty_cache()
     return recs
 
@@ -2881,67 +2912,115 @@ DRYRUN_KEYS = ("memory", "cost_analysis", "collectives", "analytic",
                "analytic_peak_bytes_per_device", "n_microbatches",
                "fits_hbm_analytic", "terms", "trace_s", "torch_version",
                "kernel_launches")
+DRYRUN_SERVE_KEYS = ("memory", "cost_analysis", "collectives", "analytic",
+                     "params_bytes_per_device", "cache_bytes_per_device",
+                     "analytic_peak_bytes_per_device", "fits_hbm_analytic",
+                     "terms", "trace_s", "torch_version", "kernel_launches")
 
 
 def phase_dryrun(card: str) -> dict:
-    """15c. ``python -m repro_torch.launch.dryrun --device cuda`` on
-    DRYRUN_CELL in a subprocess: its record's keys, collective bytes,
-    the analytic fit in 80 GB and its own kernel counts (0)."""
+    """15c and 16b. ``python -m repro_torch.launch.dryrun --device cuda``
+    on DRYRUN_CELL's shapes in one subprocess.  15c, the train cell: its
+    record's keys, collective bytes, the analytic fit in 80 GB, traced
+    FLOPs against the analytic count and its own kernel counts (0).  16b,
+    the decode cell on the sharded serving step: its keys, collective
+    bytes, 0 launches, and the traced peak a device beside the analytic
+    one and the bytes of the whole weights (what each rank held when the
+    serving cells gathered them)."""
+    from repro_torch import configs
     from repro_torch.core.resource_manager import HBM_BYTES_PER_CHIP
-    arch, shape = DRYRUN_CELL
+    arch, shapes = DRYRUN_CELL
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
+    recs = {}
     with tempfile.TemporaryDirectory() as out_dir:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--mesh", "single", "--device", "cuda",
-               "--out", out_dir]
+               arch, "--mesh", "single", "--device", "cuda", "--out",
+               out_dir]
+        for shape in shapes:
+            cmd += ["--shape", shape]
         try:
             # subprocess.run kills the child when the timeout expires
             proc = subprocess.run(
                 cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True, timeout=DRYRUN_TIMEOUT)
         except subprocess.TimeoutExpired as e:
-            check(False, f"phase 15c {arch} x {shape}: over {DRYRUN_TIMEOUT}"
-                  f" s; {str(e.output)[-2000:]}")
-        check(proc.returncode == 0, f"phase 15c {arch} x {shape}: exit "
+            check(False, f"phase 15c/16b {arch} x {shapes}: over "
+                  f"{DRYRUN_TIMEOUT} s; {str(e.output)[-2000:]}")
+        check(proc.returncode == 0, f"phase 15c/16b {arch} x {shapes}: exit "
               f"{proc.returncode}; {proc.stdout[-3000:]}")
-        with open(os.path.join(out_dir, f"{arch}__{shape}__single.json")) as f:
-            rec = json.load(f)
+        for shape in shapes:
+            with open(os.path.join(out_dir,
+                                   f"{arch}__{shape}__single.json")) as f:
+                recs[shape] = json.load(f)
     wall = time.perf_counter() - t0
-    missing = [k for k in DRYRUN_KEYS if k not in rec]
-    check(not missing, f"phase 15c {arch}: keys {missing} missing")
-    check(rec["collectives"]["total"] > 0,
-          f"phase 15c {arch}: no collective bytes")
-    check(not any(rec["kernel_launches"].values()),
-          f"phase 15c {arch}: kernels launched {rec['kernel_launches']}")
-    peak = rec["analytic_peak_bytes_per_device"]
-    check(rec["fits_hbm_analytic"] == (peak < HBM_BYTES_PER_CHIP),
-          f"phase 15c {arch}: fits_hbm_analytic {rec['fits_hbm_analytic']} "
-          f"at {peak} B")
-    flops_ratio = (rec["cost_analysis"]["flops_per_device"]
-                   / (rec["analytic"]["flops"] / rec["n_devices"]))
-    check(FLOP_RATIO[0] < flops_ratio < FLOP_RATIO[1],
-          f"phase 15c {arch}: traced/analytic FLOPs {flops_ratio}")
-    print(f"  15c {arch} x {shape} on a fake (16, 16) group, fake cuda "
-          f"tensors, torch {rec['torch_version']}: trace "
-          f"{rec['trace_s']:.3f} s, subprocess {wall:.3f} s, traced peak "
-          f"{rec['memory']['peak_bytes_per_device'] / 1e9:.4f} GB a device, "
-          f"analytic {peak / 1e9:.4f} GB (fits 80 GB: "
-          f"{rec['fits_hbm_analytic']}), collectives "
-          f"{rec['collectives']['total']:.6e} B a device, traced/analytic "
-          f"FLOPs {flops_ratio:.4f}, {rec.get('n_microbatches')} "
-          f"microbatches, kernel launches {rec['kernel_launches']} [{card}]")
-    return {"cell": f"{arch} x {shape}", "trace_s": rec["trace_s"],
-            "wall_s": wall,
-            "peak_bytes_per_device": rec["memory"]["peak_bytes_per_device"],
-            "analytic_peak_bytes_per_device": peak,
-            "fits_hbm_analytic": rec["fits_hbm_analytic"],
-            "collectives": rec["collectives"],
-            "flops_per_device": rec["cost_analysis"]["flops_per_device"],
-            "traced_over_analytic_flops": flops_ratio,
-            "n_microbatches": rec.get("n_microbatches"),
-            "terms": rec["terms"], "torch_version": rec["torch_version"],
-            "kernel_launches": rec["kernel_launches"]}
+    out = {}
+    for shape, rec in recs.items():
+        phase = "15c" if rec["kind"] == "train" else "16b"
+        keys = DRYRUN_KEYS if rec["kind"] == "train" else DRYRUN_SERVE_KEYS
+        missing = [k for k in keys if k not in rec]
+        check(not missing, f"phase {phase} {arch} x {shape}: keys {missing} "
+              "missing")
+        check(rec["collectives"]["total"] > 0,
+              f"phase {phase} {arch} x {shape}: no collective bytes")
+        check(not any(rec["kernel_launches"].values()),
+              f"phase {phase} {arch} x {shape}: kernels launched "
+              f"{rec['kernel_launches']}")
+        peak = rec["analytic_peak_bytes_per_device"]
+        check(rec["fits_hbm_analytic"] == (peak < HBM_BYTES_PER_CHIP),
+              f"phase {phase} {arch}: fits_hbm_analytic "
+              f"{rec['fits_hbm_analytic']} at {peak} B")
+        flops_ratio = (rec["cost_analysis"]["flops_per_device"]
+                       / (rec["analytic"]["flops"] / rec["n_devices"]))
+        traced = rec["memory"]["peak_bytes_per_device"]
+        summary = {"cell": f"{arch} x {shape}", "trace_s": rec["trace_s"],
+                   "peak_bytes_per_device": traced,
+                   "analytic_peak_bytes_per_device": peak,
+                   "fits_hbm_analytic": rec["fits_hbm_analytic"],
+                   "collectives": rec["collectives"],
+                   "flops_per_device": rec["cost_analysis"][
+                       "flops_per_device"],
+                   "traced_over_analytic_flops": flops_ratio,
+                   "terms": rec["terms"],
+                   "torch_version": rec["torch_version"],
+                   "kernel_launches": rec["kernel_launches"]}
+        if rec["kind"] == "train":
+            check(FLOP_RATIO[0] < flops_ratio < FLOP_RATIO[1],
+                  f"phase 15c {arch}: traced/analytic FLOPs {flops_ratio}")
+            print(f"  15c {arch} x {shape} on a fake (16, 16) group, fake "
+                  f"cuda tensors, torch {rec['torch_version']}: trace "
+                  f"{rec['trace_s']:.3f} s, traced peak "
+                  f"{traced / 1e9:.4f} GB a device, analytic "
+                  f"{peak / 1e9:.4f} GB (fits 80 GB: "
+                  f"{rec['fits_hbm_analytic']}), collectives "
+                  f"{rec['collectives']['total']:.6e} B a device, "
+                  f"traced/analytic FLOPs {flops_ratio:.4f}, "
+                  f"{rec.get('n_microbatches')} microbatches, kernel "
+                  f"launches {rec['kernel_launches']} [{card}]")
+            out.update(summary, n_microbatches=rec.get("n_microbatches"))
+            continue
+        weights = configs.get(arch).n_params() * 2     # bf16, whole
+        print(f"  16b {arch} x {shape} (sharded decode step, serving plan) "
+              f"on a fake (16, 16) group, fake cuda tensors: trace "
+              f"{rec['trace_s']:.3f} s, traced peak {traced / 1e9:.4f} GB "
+              f"a device (argument "
+              f"{rec['memory']['argument_bytes'] / 1e9:.4f} GB), analytic "
+              f"{peak / 1e9:.4f} GB, the whole weights "
+              f"{weights / 1e9:.4f} GB; params "
+              f"{rec['params_bytes_per_device'] / 1e9:.4f} GB and caches "
+              f"{rec['cache_bytes_per_device'] / 1e9:.4f} GB a device; "
+              f"collectives {rec['collectives']['total']:.6e} B a device "
+              f"(all-gather {rec['collectives']['all-gather']:.6e}); "
+              f"traced/analytic FLOPs {flops_ratio:.4f}; kernel launches "
+              f"{rec['kernel_launches']} [{card}]")
+        out["decode"] = summary | {
+            "argument_bytes": rec["memory"]["argument_bytes"],
+            "params_bytes_per_device": rec["params_bytes_per_device"],
+            "cache_bytes_per_device": rec["cache_bytes_per_device"],
+            "whole_weights_bytes": weights}
+    out["wall_s"] = wall
+    print(f"  15c/16b subprocess: {wall:.3f} s")
+    return out
 
 
 def phase_save_tp_out(torch, dev, card: str, training: dict) -> dict:
@@ -3008,6 +3087,154 @@ def phase_save_tp_out(torch, dev, card: str, training: dict) -> dict:
     return {"steps": rows, "bitwise": bitwise, "step_ms_all": step_ms,
             "peak_memory_gb": peak_gb, "memory_before_gb": base_gb,
             "launches": launches}
+
+
+def _rel_err(torch, got, want) -> float:
+    """max |got - want| over max |want| (0 where both are 0)."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / (scale or 1.0)
+
+
+def phase_serve_sharded(torch, dev, card: str, plain: dict) -> dict:
+    """16a. 11b's first model (Hymba-1.5B, full width and depth, bf16, the
+    same seed, prompts and greedy steps) through the same serving steps
+    on DTensor params placed by the weight-stationary serving plan
+    (``Plan(serving=True)``) on a 1 x 1 ``DeviceMesh``, caches placed by
+    ``Plan.cache_specs`` (``init_caches(mesh=)``): the prefill's logits
+    and caches and every step's logits against 11b's plain run (`plain`,
+    its record with the outputs it kept; bit for bit, else within
+    SHARDED_TOL), the greedy tokens equal, K3 once per SSM layer a
+    prefill and never in decode, and the prefill wall and peak memory
+    beside 11b's.  The decode steps alternate with plain ones (the plain
+    params, copies of the same caches), so that both meet one host's
+    load: the plan path's host cost a step."""
+    from repro_torch import configs
+    from repro_torch.core import DeviceGrid
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.launch import spmd
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.sharding import Plan, parallel
+    from repro_torch.util import tree_leaves
+    import dataclasses
+    arch, B, S, new = SERVE_MODELS[0]
+    want = plain.pop("_outputs")
+    cfg = configs.get(arch)
+    n_ssm = sum(s.n_layers for s in tf.build_segments(cfg) if s.ssm)
+    print(f"phase 16a: {arch} (full width and depth, {cfg.dtype}) on the "
+          f"serving plan at one rank: DTensor params on a 1 x 1 DeviceMesh, "
+          f"{B} x {S} prompts, {new} greedy tokens")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(12)     # 11b's seed
+    params = tf.init_params(cfg, gen, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    mesh = spmd.local_mesh(DeviceGrid([dev], tp=1))
+    plan = dataclasses.replace(Plan.for_mesh(mesh), serving=True)
+    plain_params = params         # at one rank the DTensors wrap these
+    params = parallel.distribute_tree(params, plan.param_specs(params), mesh)
+    check(all(isinstance(t, parallel.DTensor) for t in tree_leaves(params)),
+          "phase 16a: a param is not a DTensor")
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg, sample=True)
+    V = cfg.vocab_size
+
+    def timed(fn, want_k3: int, label: str):
+        before = ms_ops.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(ms_ops.LAUNCHES - before == want_k3,
+              f"phase 16a {label}: {ms_ops.LAUNCHES - before} K3 launches, "
+              f"want {want_k3}")
+        return out, ms
+
+    prefill_ms = []
+    for _ in range(PREFILL_REPS):
+        (caches, logits), ms = timed(lambda: prefill(params, batch), n_ssm,
+                                     "prefill")
+        prefill_ms.append(ms)
+    check(isinstance(logits, parallel.DTensor)
+          and all(isinstance(t, parallel.DTensor)
+                  for t in tree_leaves(caches)),
+          "phase 16a: the sharded prefill returned plain tensors")
+    errs = {"prefill_logits": _rel_err(torch, logits.full_tensor().cpu(),
+                                       want["prefill_logits"])}
+    bitwise = {"prefill_logits": torch.equal(logits.full_tensor().cpu(),
+                                             want["prefill_logits"])}
+    cache_eq, cache_err = True, 0.0
+    for got_c, want_c in zip(caches, want["prefill_caches"]):
+        for k, w in want_c.items():
+            g = got_c[k].full_tensor().cpu()
+            cache_eq &= torch.equal(g, w)
+            cache_err = max(cache_err, _rel_err(torch, g, w))
+    errs["prefill_caches"], bitwise["prefill_caches"] = cache_err, cache_eq
+    # the plain steps' caches: copies of the same prefill's, so that plan
+    # and plain decode steps alternate under one host's load
+    plain_dec = tf.grow_caches(
+        [{k: parallel.local(v).clone() for k, v in c.items()}
+         for c in caches], tf.init_caches(cfg, B, S + new + 1, device=dev))
+    dec = tf.grow_caches(caches, tf.init_caches(cfg, B, S + new + 1,
+                                                device=dev, mesh=mesh))
+    tok = logits.full_tensor()[:, -1, :V].argmax(-1).to(torch.int32)[:, None]
+    plain_tok = tok
+    out, step_ms, plain_ms, step_eq, step_err = [tok], [], [], True, 0.0
+    for t in range(new + 1):
+        pos = torch.full((B,), S + t, dtype=torch.int32, device=dev)
+        (dec, lg, tok), ms = timed(lambda: decode(params, dec, tok, pos), 0,
+                                   f"decode step {t}")
+        (plain_dec, _, plain_tok), p_ms = timed(
+            lambda: decode(plain_params, plain_dec, plain_tok, pos), 0,
+            f"plain decode step {t}")
+        if t < new:
+            step_ms.append(ms)
+            plain_ms.append(p_ms)
+        g = lg.full_tensor().cpu()
+        step_eq &= torch.equal(g, want["logits"][t])
+        step_err = max(step_err, _rel_err(torch, g, want["logits"][t]))
+        tok = tok.full_tensor()
+        check(torch.equal(tok, plain_tok),
+              f"phase 16a step {t}: plan and plain tokens differ")
+        out.append(tok)
+    errs["decode_logits"], bitwise["decode_logits"] = step_err, step_eq
+    tokens = torch.cat(out, dim=1).cpu()
+    check(torch.equal(tokens, want["tokens"]),
+          f"phase 16a: greedy tokens differ from 11b's: {tokens[0, :12]} vs "
+          f"{want['tokens'][0, :12]}")
+    worst = max(errs.values())
+    check(all(bitwise.values()) or worst <= SHARDED_TOL,
+          f"phase 16a: against 11b's plain run, max rel err {errs}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    timed_pre = prefill_ms[1:]
+    rec = {"arch": arch, "B": B, "S": S, "new_tokens": new,
+           "prefill_ms": statistics.median(timed_pre),
+           "prefill_ms_all": prefill_ms,
+           "prefill_ms_plain": plain["prefill_ms"],
+           "decode_ms_per_token": statistics.median(step_ms),
+           "decode_ms_all": step_ms,
+           "decode_ms_per_token_plain": statistics.median(plain_ms),
+           "decode_ms_plain_all": plain_ms,
+           "decode_ms_per_token_11b": plain["decode_ms_per_token"],
+           "peak_memory_gb": peak, "peak_memory_gb_plain":
+               plain["peak_memory_gb"],
+           "bitwise": bitwise, "max_rel_err": errs,
+           "k3_launches_per_prefill": n_ssm}
+    host = rec["decode_ms_per_token"] - rec["decode_ms_per_token_plain"]
+    print(f"  16a plan / plain (11b): prefill {rec['prefill_ms']:.3f} / "
+          f"{plain['prefill_ms']:.3f} ms (median of {len(timed_pre)}; first "
+          f"{prefill_ms[0]:.3f}); decode, plan and plain steps alternating: "
+          f"{rec['decode_ms_per_token']:.3f} / "
+          f"{rec['decode_ms_per_token_plain']:.3f} ms a step of {B} tokens "
+          f"(medians of {new}; the plan path's host cost {host:+.3f} ms; "
+          f"11b's plain {plain['decode_ms_per_token']:.3f}), peak "
+          f"{peak:.2f} / {plain['peak_memory_gb']:.2f} GB; "
+          f"bit for bit {bitwise}, max rel err {errs}; tokens equal 11b's; "
+          f"K3 {n_ssm} a prefill, 0 a decode step [{card}]")
+    return rec
 
 
 def kernel_entry(name, source, replaces, launches, err, rows,
@@ -3268,12 +3495,23 @@ def run(torch) -> int:
     analytic_rec = phase_analytic(torch, dev, card, training, serving)
     stage_cost = phase_stage_cost(torch, dev, card)
     save_tp = phase_save_tp_out(torch, dev, card, training)
-    print(f"phase 15c: the dry-run of {DRYRUN_CELL}")
+    print(f"phase 15c and 16b: the dry-run of {DRYRUN_CELL}")
     dryrun = phase_dryrun(card)
     dry_launches = [dryrun["kernel_launches"][k]
                     for k in ("mamba_scan", "mamba_ssm_bwd")]
     roof_s = time.perf_counter() - t_roof
     print(f"  phase 15: {roof_s:.3f} s wall")
+    t_shard = time.perf_counter()
+    ms_ops.LAUNCHES = 0                        # phase 16a's window
+    serve_sharded = phase_serve_sharded(torch, dev, card,
+                                        serving[SERVE_MODELS[0][0]])
+    sharded_launches = ms_ops.LAUNCHES
+    check(sharded_launches == PREFILL_REPS * serve_sharded[
+        "k3_launches_per_prefill"],
+        f"phase 16a launched K3 {sharded_launches} times")
+    shard_s = time.perf_counter() - t_shard
+    print(f"  phase 16a: K3 launched {sharded_launches} times; "
+          f"{shard_s:.3f} s wall")
     t_bytes = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S
     t_ops = sum(s["flops"] for s in shapes) / FP32_FLOP_PER_S
     record = {"kernels": [{
@@ -3320,7 +3558,8 @@ def run(torch) -> int:
         "launches_hybrid": hybrid["k3_launches"],
         "launches_plain": plan_vs_plain["launches_plain"][0],
         "launches_save_tp_out": save_tp["launches"][0],
-        "launches_dryrun": dry_launches[0]}, kernel_entry(
+        "launches_dryrun": dry_launches[0],
+        "launches_serve_sharded": sharded_launches}, kernel_entry(
         "mamba_scan_bwd",
         "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu",
         "src/repro/models/layers/mamba.py:62", training["k3_bwd_launches"],
@@ -3351,7 +3590,8 @@ def run(torch) -> int:
         "phase_13_s": train_s, "plan_vs_plain": plan_vs_plain,
         "ep_combine": ep_combine, "phase_14_s": plan_s,
         "analytic": analytic_rec, "stage_cost": stage_cost,
-        "dryrun": dryrun, "save_tp_out": save_tp, "phase_15_s": roof_s}
+        "dryrun": dryrun, "save_tp_out": save_tp, "phase_15_s": roof_s,
+        "serve_sharded": serve_sharded, "phase_16_s": shard_s}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,14 @@ each cell for a 256- or 512-chip mesh; the port traces it:
     cells) or params (the serving cells), and one step:
       - train: the sharded train step (``train.make_train_step``), every
         microbatch, forward, remat recompute and backward, and AdamW;
-      - prefill and decode: the port serves on one device, so each rank
-        gathers the weights and runs ``serve.step``'s prefill or decode
-        step on its batch rows (its work is replicated over "model");
+      - prefill and decode: ``serve.step``'s sharded prefill or decode
+        step on the serving plan's DTensor params (``Plan(serving=True)``
+        where ``build_cell`` picks it: weight-stationary, each model rank
+        keeps its heads, MLP and ``d_inner`` shards, vocab shard and,
+        with the cell's ``moe_ep_axis``, its experts), the batch as
+        DTensor rows (``Plan.batch_specs``) and, for decode, caches
+        placed by ``Plan.cache_specs`` (``init_caches(mesh=)``), as the
+        reference jits its steps with those shardings;
   * while it runs, ``FlopCounterMode`` (FLOPs per device), the
     collective counter (:mod:`repro_torch.roofline.collectives`) and
     ``MemTracker`` (peak bytes per device) watch it.  The kernels meet
@@ -28,7 +33,8 @@ port's:
   * ``memory``: ``MemTracker``'s per-device peak of live tensor storage
     during the step, the state and the batch included, in place of
     XLA:CPU's ``memory_analysis()``.  ``argument_bytes`` is what the
-    step was handed (state or params, batch), ``temp_bytes`` the rest of
+    step was handed (state or params, batch, and decode's caches: each
+    rank's blocks of them), ``temp_bytes`` the rest of
     the peak; the step updates its state in place, so ``output_bytes``
     and ``alias_bytes`` are 0.
   * ``cost_analysis``: ``flops_per_device`` from ``FlopCounterMode``
@@ -43,7 +49,8 @@ port's:
   * ``trace_s`` in place of ``lower_s`` and ``compile_s``, and
     ``torch_version``.
 
-CLI (the reference's, plus ``--device`` for the fake tensors)::
+CLI (the reference's, plus ``--device`` for the fake tensors; ``--shape``
+may be repeated to trace several cells in one process)::
 
     python -m repro_torch.launch.dryrun --arch hymba-1.5b --shape train_4k \\
         --mesh single --device cpu
@@ -276,6 +283,9 @@ def _trace(cfg: ModelConfig, shape: ShapeConfig, cell: Cell, mesh,
     with FakeTensorMode(allow_non_fake_inputs=True):
         params = _to(transformer.init_params(cfg, torch.Generator(),
                                              device="cpu"), device)
+        batch = _fake_batch(cfg, shape.kind, shape.global_batch,
+                            shape.seq_len, device)
+        caches = None
         if cell.kind == "train":
             state = make_train_state(cfg, params, opts.pop("moment_dtype"))
             held = parallel.distribute_tree(
@@ -283,13 +293,17 @@ def _trace(cfg: ModelConfig, shape: ShapeConfig, cell: Cell, mesh,
         else:
             held = parallel.distribute_tree(
                 params, plan.param_specs(params), mesh)
-        batch = _fake_batch(cfg, shape.kind, shape.global_batch,
-                            shape.seq_len, device)
+            batch = parallel.distribute_tree(batch, plan.batch_specs(batch),
+                                             mesh)
+            if cell.kind == "decode":
+                caches = transformer.init_caches(
+                    cfg, shape.global_batch, shape.seq_len, opts["enc_len"],
+                    device=device, mesh=mesh)
         mem = MemTracker()
-        args = [parallel.local(t) for t in tree_leaves(held)]
-        mem.track_external(*args, *batch.values())
-        argument_bytes = sum(t.numel() * t.element_size()
-                             for t in args + list(batch.values()))
+        args = [parallel.local(t) for t in
+                tree_leaves([held, caches or [], batch])]
+        mem.track_external(*args)
+        argument_bytes = sum(t.numel() * t.element_size() for t in args)
         flops, colls = FlopCounterMode(display=False), CollectiveCounter()
         t0 = time.perf_counter()
         with mem, flops, colls:
@@ -297,7 +311,7 @@ def _trace(cfg: ModelConfig, shape: ShapeConfig, cell: Cell, mesh,
                 step = make_train_step(cfg, **opts)
                 step(held, batch)
             else:
-                _serve(cfg, shape, cell, held, batch, device)
+                _serve(cfg, cell, held, batch, caches)
         trace_s = time.perf_counter() - t0
     peak = max((snap.get("Total", 0) for snap in
                 mem.get_tracker_snapshot("peak").values()), default=0)
@@ -312,24 +326,18 @@ def _trace(cfg: ModelConfig, shape: ShapeConfig, cell: Cell, mesh,
             "collectives": colls.bytes(), "trace_s": trace_s}
 
 
-def _serve(cfg, shape, cell: Cell, params, batch, device) -> None:
-    """One serving step on this rank: the weights gathered, the port's
-    one-device prefill or decode step on the rank's batch rows."""
-    ctx = parallel.context(params, batch)
-    local = ctx.localize_tree(params, tree_map(lambda _: parallel.GATHER,
-                                               params))
-    rows = {k: ctx.local_batch(v) for k, v in batch.items()}
-    opts = cell.options
+def _serve(cfg, cell: Cell, params, batch, caches) -> None:
+    """One sharded serving step on this rank: ``serve.step``'s prefill or
+    decode on the plan's DTensor params, DTensor batch rows and (decode)
+    the DTensor caches, with the cell's ``moe_groups`` and
+    ``moe_ep_axis``."""
+    opts = dict(moe_groups=cell.options["moe_groups"],
+                moe_ep_axis=cell.options["moe_ep_axis"])
     if cell.kind == "prefill":
-        make_prefill_step(cfg, moe_groups=opts["moe_groups"],
-                          moe_ep_axis=None)(local, rows)
+        make_prefill_step(cfg, **opts)(params, batch)
         return
-    caches = transformer.init_caches(cfg, rows["tokens"].shape[0],
-                                     shape.seq_len, opts["enc_len"],
-                                     device=device)
-    make_decode_step(cfg, moe_groups=opts["moe_groups"],
-                     moe_ep_axis=None)(local, caches, rows["tokens"],
-                                       rows["pos"])
+    make_decode_step(cfg, **opts)(params, caches, batch["tokens"],
+                                  batch["pos"])
 
 
 def _launches() -> Dict[str, int]:
@@ -405,7 +413,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 def main(argv=None):
     ap = argparse.ArgumentParser(description="Multi-pod dry-run")
     ap.add_argument("--arch", default=None, help="arch id (default: all)")
-    ap.add_argument("--shape", default=None, choices=list(SHAPES) + [None])
+    ap.add_argument("--shape", action="append", choices=list(SHAPES),
+                    help="shape (repeat for several; default: all)")
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--out", default="out/dryrun")
@@ -414,7 +423,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else configs.names()
-    shapes = [args.shape] if args.shape else list(SHAPES)
+    shapes = args.shape or list(SHAPES)
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
 

@@ -13,6 +13,16 @@ unpadded form.
 
 Decode writes the new key/value (or MLA latent) into the cache in place
 and returns the same buffers: the caller's cache holds the new values.
+
+Sharded decode (``transformer.decode_step`` on DTensor params) passes the
+rank's heads (``tp``), the model group and how the cache is split over
+it (``layout``): "heads" (the rank's kv heads, the reference's layout
+when they divide the model axis), "seq" (the rank's run of slots for
+every head, flash-decode style: the softmax and the weighted values
+are combined over the group, ``parallel.split_softmax``, and a new
+key lands on the one rank that owns its slot) or None (whole).  The
+masks keep global slot indices, so ring buffers, ``window``, ``start``
+and cross-attention read the same slots as on one device.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import parallel
 from .common import apply_rope, normal_init, rmsnorm, rope_angles
 
 Params = Dict[str, Any]
@@ -79,9 +90,12 @@ def _exact_sums(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def _softmax(logits: torch.Tensor) -> torch.Tensor:
+def _softmax(logits: torch.Tensor, seq=None) -> torch.Tensor:
     """Softmax over the last axis, as ``jax.nn.softmax`` computes it (the
-    denominator in f64 on the CPU, see :func:`_exact_sums`)."""
+    denominator in f64 on the CPU, see :func:`_exact_sums`); with `seq`
+    (a group over which the last axis is split) this rank's part of it."""
+    if seq is not None:
+        return parallel.split_softmax(logits, seq, _exact_sums(logits))
     e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     if _exact_sums(e):
         return e / e.sum(dim=-1, keepdim=True,
@@ -159,6 +173,7 @@ def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                 causal: bool = True, window: int = 0,
                 kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 k_valid: Optional[torch.Tensor] = None, tp=None,
+                whole_kv: bool = False,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence attention (train/prefill). Returns (out, kv-cache).
 
@@ -169,18 +184,22 @@ def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     With `tp` (a model-axis group) ``wq`` and ``wo`` are this rank's
     heads; ``wk``/``wv`` are its kv heads when the model axis divides
     them, else whole (the plan leaves them unsharded), and the rank takes
-    the kv head of each of its query heads.  One all-reduce sums the
-    heads' outputs.
+    the kv head of each of its query heads (with `whole_kv` it projects
+    every kv head and the cache holds them all: a sharded prefill then
+    splits that cache on the sequence).  One all-reduce sums the heads'
+    outputs.
     """
     h = cfg.n_heads
     wk, wv = p["wk"], p["wv"]
+    idx = None
     if tp is not None:
         x = tp.copy_in(x)
         h = h // tp.size
         if wk.shape[1] == cfg.n_kv_heads:  # wk, wv whole: pick per head
             group = cfg.n_heads // cfg.n_kv_heads
             idx = (tp.rank * h + torch.arange(h, device=x.device)) // group
-            wk, wv = wk.index_select(1, idx), wv.index_select(1, idx)
+            if not whole_kv:
+                wk, wv = wk.index_select(1, idx), wv.index_select(1, idx)
     S = x.shape[1]      # after copy_in: the whole sequence
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if kv_override is None:
@@ -192,6 +211,8 @@ def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     else:
         k, v = kv_override
     cache = {"k": k, "v": v}
+    if whole_kv and idx is not None:
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     kf, vf = _repeat_kv(k, h), _repeat_kv(v, h)
     k_pos = positions if kv_override is None else torch.arange(
         k.shape[1], device=x.device)
@@ -215,7 +236,8 @@ def _write_slot(buf: torch.Tensor, val: torch.Tensor, slot: torch.Tensor
 
 def gqa_decode(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: torch.Tensor, *, window: int = 0, cross: bool = False,
-               start: Optional[torch.Tensor] = None,
+               start: Optional[torch.Tensor] = None, tp=None, model=None,
+               layout: Optional[str] = None,
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token decode. x: (B,1,d); cache k/v: (B,Sc,kv,hd); pos: (B,).
 
@@ -226,54 +248,93 @@ def gqa_decode(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     runs at pad-relative positions (pos - start) so a padded prompt decodes
     bit-identically to its unpadded form.  The new k/v are written into
     the cache's buffers in place.
+
+    Sharded (see the module docstring): `tp` is the heads' group (``wq``
+    and ``wo`` are the rank's heads; ``wk``/``wv`` its kv heads on a
+    "heads" cache, else whole), `model` the model group and `layout` the
+    cache's split over it.  On a "heads" cache with replicated heads
+    (cross-attention) the rank runs its kv heads' query heads from the
+    whole weights.  Otherwise a rank with `tp` gathers every head's query
+    over it (a few hundred bytes a row), attends with all heads to its
+    slots, and keeps its heads' outputs.  The heads' outputs are summed
+    over the group that split them.
     """
     B = x.shape[0]
-    h = cfg.n_heads
-    Sc = cache["k"].shape[1]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    hd = cfg.head_dim_
+    wq, wo = p["wq"], p["wo"]
+    out_group = tp
+    if layout == "heads" and tp is None:
+        n = cfg.n_heads // model.size
+        wq, wo = wq[:, model.rank * n:(model.rank + 1) * n], \
+            wo[model.rank * n:(model.rank + 1) * n]
+        out_group = model
+    seq = model if layout == "seq" else None
+    Sc = cache["k"].shape[1]                 # this rank's slots
+    offset = 0 if seq is None else seq.rank * Sc
+    n_slots = Sc if seq is None else Sc * seq.size
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
 
     if not cross:
         k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
         v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
         rpos = pos if start is None else pos - start
-        cos, sin = rope_angles(rpos[:, None], cfg.head_dim_, cfg.rope_theta)
+        cos, sin = rope_angles(rpos[:, None], hd, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k_new = apply_rope(k_new, cos, sin)
-        slot = (pos % Sc).long()
-        cache = {"k": _write_slot(cache["k"], k_new, slot),
-                 "v": _write_slot(cache["v"], v_new, slot)}
+        slot = (pos % n_slots).long()
+        if seq is None:
+            cache = {"k": _write_slot(cache["k"], k_new, slot),
+                     "v": _write_slot(cache["v"], v_new, slot)}
+        else:
+            cache = {"k": parallel.write_owned(cache["k"], k_new, slot,
+                                               offset),
+                     "v": parallel.write_owned(cache["v"], v_new, slot,
+                                               offset)}
+    mine = None
+    if tp is not None and layout != "heads":
+        mine = slice(tp.rank * q.shape[2], (tp.rank + 1) * q.shape[2])
+        q = tp.all_gather(q, 2)
+    h = q.shape[2]
 
     # grouped-query form, no repeat-kv (as the reference, which keeps the
     # sequence-sharded cache in place)
     kv_heads = cache["k"].shape[2]
     g = h // kv_heads
-    qg = q.reshape(B, kv_heads, g, cfg.head_dim_)      # (B,kv,g,hd)
+    qg = q.reshape(B, kv_heads, g, hd)      # (B,kv,g,hd)
     logits = torch.einsum("bkgd,bskd->bkgs", qg, cache["k"]).float()
-    logits = logits * (cfg.head_dim_ ** -0.5)
+    logits = logits * (hd ** -0.5)
     if not cross:
-        slots = torch.arange(Sc, device=x.device)
+        slots = torch.arange(offset, offset + Sc, device=x.device)
         if window:
-            valid = (slots[None, :] < pos[:, None]) | (pos[:, None] >= Sc)
+            valid = (slots[None, :] < pos[:, None]) | (pos[:, None] >= n_slots)
             if start is not None:
                 # absolute position held by ring-buffer slot s
                 abs_pos = pos[:, None] - torch.remainder(
-                    pos[:, None] - slots[None, :], Sc)
+                    pos[:, None] - slots[None, :], n_slots)
                 valid &= abs_pos >= start[:, None]
         else:
             valid = slots[None, :] <= pos[:, None]
             if start is not None:
                 valid &= slots[None, :] >= start[:, None]
         logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
-    w = _softmax(logits).to(cache["v"].dtype)
+    w = _softmax(logits, seq).to(cache["v"].dtype)
     if _exact_sums(w):
         # with one query head a group the product is a matrix-vector one,
         # whose f32 sum order on the CPU follows where the real slots sit
         out = torch.einsum("bkgs,bskd->bkgd", w.double(),
-                           cache["v"].double()).to(cache["v"].dtype)
+                           cache["v"].double())
+        if seq is not None:
+            out = seq.reduce_out(out)
+        out = out.to(cache["v"].dtype)
     else:
         out = torch.einsum("bkgs,bskd->bkgd", w, cache["v"])
-    out = out.reshape(B, 1, h, cfg.head_dim_)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+        if seq is not None:
+            out = seq.reduce_out(out)
+    out = out.reshape(B, 1, h, hd)
+    if mine is not None:
+        out = out[:, :, mine]
+    out = torch.einsum("bshk,hkd->bsd", out, wo)
+    return (out if out_group is None else out_group.reduce_out(out)), cache
 
 
 # =================================================================== MLA
@@ -342,35 +403,48 @@ def mla_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
 
 def mla_decode(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: torch.Tensor, start: Optional[torch.Tensor] = None,
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               seq=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weight-absorbed MLA decode: attention runs in the latent space.
 
     score(t) = q_nope^T W_uk ckv_t + q_rope . k_rope_t
     out      = (sum_t w_t ckv_t) W_uv
 
     start (B,): first real cache slot per row (see gqa_decode).  The new
-    latent is written into the cache's buffers in place.
+    latent is written into the cache's buffers in place.  With `seq` (a
+    group the latent cache's slots are split over; the heads run whole
+    on every rank) the softmax and ``sum_t w_t ckv_t`` are combined over
+    it.
     """
     Sc = cache["ckv"].shape[1]
+    offset = 0 if seq is None else seq.rank * Sc
+    n_slots = Sc if seq is None else Sc * seq.size
     rpos = pos if start is None else pos - start
     q_nope, q_rope = _mla_q(cfg, p, x, rpos[:, None])
     ckv_new, k_rope_new = _mla_latent(cfg, p, x, rpos[:, None])
-    slot = (pos % Sc).long()
-    cache = {"ckv": _write_slot(cache["ckv"], ckv_new, slot),
-             "k_rope": _write_slot(cache["k_rope"], k_rope_new, slot)}
+    slot = (pos % n_slots).long()
+    if seq is None:
+        cache = {"ckv": _write_slot(cache["ckv"], ckv_new, slot),
+                 "k_rope": _write_slot(cache["k_rope"], k_rope_new, slot)}
+    else:
+        cache = {"ckv": parallel.write_owned(cache["ckv"], ckv_new, slot,
+                                             offset),
+                 "k_rope": parallel.write_owned(cache["k_rope"], k_rope_new,
+                                                slot, offset)}
     # absorb: q_lat (B,1,h,kvr)
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
     logits = torch.einsum("bshr,btr->bhst", q_lat, cache["ckv"]).float()
     logits = logits + torch.einsum("bshk,btk->bhst", q_rope,
                                    cache["k_rope"]).float()
     logits = logits * (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
-    slots = torch.arange(Sc, device=x.device)
+    slots = torch.arange(offset, offset + Sc, device=x.device)
     valid = slots[None, :] <= pos[:, None]
     if start is not None:
         valid &= slots[None, :] >= start[:, None]
     logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
-    w = _softmax(logits)
+    w = _softmax(logits, seq)
     o_lat = torch.einsum("bhst,btr->bshr", w.to(cache["ckv"].dtype),
                          cache["ckv"])
+    if seq is not None:
+        o_lat = seq.reduce_out(o_lat)
     out = torch.einsum("bshr,rhk->bshk", o_lat, p["w_uv"])
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache

@@ -22,6 +22,13 @@ hand-written Hopper kernel on a CUDA tensor, its plain version on a CPU
 one; it neither keeps nor makes a (B, S, d_inner, d_state) tensor.  Under
 ``no_grad`` or ``inference_mode`` it runs the forward alone and records
 nothing, so serving launches K3 alone.  Decode keeps ``_ssm_inputs``.
+
+Under tensor parallelism (`tp`) a layer runs on the rank's ``d_inner``
+channels.  Training gathers ``in_proj`` and takes the rank's columns of
+its x1 and z halves.  Serving keeps the weights where the plan put them:
+the rank holds a contiguous block of ``in_proj``'s columns (which the two
+halves do not split evenly), projects onto it, and the projection's
+blocks are gathered over the group (:func:`_in_proj`).
 """
 from __future__ import annotations
 
@@ -77,15 +84,32 @@ def _ssm_params(cfg, p: Params, x1: torch.Tensor, tp=None):
     return dt, A, dt * x1.float(), Bc, Cc
 
 
-def _ssm_inputs(cfg, p: Params, x1: torch.Tensor):
+def _ssm_inputs(cfg, p: Params, x1: torch.Tensor, tp=None):
     """x1: (B, S, di) post-conv -> per-step decay a and input b (f32,
-    (B, S, di, st)), readout C ((B, S, st) in x1's dtype)."""
-    dt, A, u, Bc, Cc = _ssm_params(cfg, p, x1)
+    (B, S, di, st)), readout C ((B, S, st) in x1's dtype).  `tp` as in
+    :func:`_ssm_params`."""
+    dt, A, u, Bc, Cc = _ssm_params(cfg, p, x1, tp)
     # in place on the product: exp's backward reads its own output, the
     # product's backward its inputs, so autograd allows it
     a = torch.exp_(dt[..., None] * A)                                # (B,S,di,st)
     b = u[..., None] * Bc.float()[:, :, None, :]
     return a, b, Cc
+
+
+def _in_proj(cfg, w: torch.Tensor, x: torch.Tensor, tp) -> torch.Tensor:
+    """x @ in_proj's columns of this rank's channels, [x1 | z] (B, S,
+    2 di/tp).  `w` is whole (training gathers it) or the rank's
+    contiguous column block (serving): then the blocks of ``x @ w`` are
+    gathered over `tp` and the rank takes its columns of each half."""
+    di = cfg.ssm_d_inner // tp.size
+    lo = tp.rank * di
+    half = cfg.ssm_d_inner
+    if w.shape[-1] == 2 * half:
+        return x @ torch.cat([w[:, lo:lo + di], w[:, half + lo:half + lo + di]],
+                             dim=-1)
+    xz = tp.all_gather(x @ w, -1)
+    return torch.cat([xz[..., lo:lo + di], xz[..., half + lo:half + lo + di]],
+                     dim=-1)
 
 
 def _causal_conv(p: Params, x1: torch.Tensor) -> torch.Tensor:
@@ -105,8 +129,9 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor, tp=None,
     one call of the fused backward of the scan and its tail in backward.
 
     With `tp` (a model-axis group) the layer runs on this rank's shard of
-    the SSM channels: ``in_proj`` arrives whole (its x1 and z halves
-    would split unevenly) and the rank takes its di columns of each half;
+    the SSM channels: ``in_proj`` arrives whole (training: its x1 and z
+    halves would split unevenly) or as the rank's column block (serving,
+    :func:`_in_proj`), and the rank takes its di columns of each half;
     every other weight arrives as its di shard.  The scan is per channel,
     so K3 and its backward run on the rank's channels with no
     communication; ``x_proj`` and ``out_proj`` each need one all-reduce."""
@@ -116,11 +141,7 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor, tp=None,
     else:
         x = tp.copy_in(x)
         di = di // tp.size
-        lo = tp.rank * di
-        w = p["in_proj"]
-        half = w.shape[-1] // 2
-        xz = x @ torch.cat([w[:, lo:lo + di], w[:, half + lo:half + lo + di]],
-                           dim=-1)
+        xz = _in_proj(cfg, p["in_proj"], x, tp)
     B, S, _ = x.shape   # after copy_in: the whole sequence
     x1, z = torch.chunk(xz, 2, dim=-1)
     x1_pre = x1
@@ -149,20 +170,25 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor, tp=None,
 
 
 def mamba_decode(cfg, p: Params, x: torch.Tensor,
-                 cache: Dict[str, torch.Tensor],
+                 cache: Dict[str, torch.Tensor], tp=None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Single-token Mamba step. x: (B,1,d); cache: conv (B,dc-1,di), h (B,di,st)."""
-    xz = x @ p["in_proj"]
+    """Single-token Mamba step. x: (B,1,d); cache: conv (B,dc-1,di), h (B,di,st).
+    With `tp` everything is the rank's di shard (conv and h too), as in
+    :func:`mamba_forward`: ``x_proj`` and ``out_proj`` are summed over it."""
+    xz = x @ p["in_proj"] if tp is None else _in_proj(cfg, p["in_proj"], x,
+                                                      tp)
     x1, z = torch.chunk(xz, 2, dim=-1)                               # (B,1,di)
 
     window = torch.cat([cache["conv"], x1], dim=1)                   # (B,dc,di)
     conv_out = torch.einsum("bci,ci->bi", window, p["conv_w"]) + p["conv_b"]
     x1c = F.silu(conv_out.float()).to(x.dtype)[:, None, :]
 
-    a, b, Cc = _ssm_inputs(cfg, p, x1c)                              # (B,1,di,st)
+    a, b, Cc = _ssm_inputs(cfg, p, x1c, tp)                          # (B,1,di,st)
     h = a[:, 0] * cache["h"] + b[:, 0]                               # (B,di,st)
     y = torch.einsum("bin,bn->bi", h, Cc[:, 0].float())
     y = y + p["D"] * x1c[:, 0].float()
     y = (y * F.silu(z[:, 0].float())).to(x.dtype)
     out = (y @ p["out_proj"])[:, None, :]
+    if tp is not None:
+        out = tp.reduce_out(out)
     return out, {"conv": window[:, 1:], "h": h}

@@ -65,11 +65,11 @@ def _topk_iterative(probs: torch.Tensor, k: int
     return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
 
 
-def _route(cfg, p: Params, x2d: torch.Tensor, ctx=None
+def _route(cfg, p: Params, x2d: torch.Tensor, ctx=None, sum_aux: bool = True
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x2d: (T, d) -> (top-k probs (T,k), top-k ids (T,k), aux loss).
-    With `ctx` the tokens are this rank's batch shard, and the aux loss's
-    statistics are summed over the batch axes."""
+    With `ctx` the tokens are this rank's batch shard, and (`sum_aux`)
+    the aux loss's statistics are summed over the batch axes."""
     e_pad, e = cfg.moe_n_routed_padded, cfg.moe_n_routed
     logits = x2d.float() @ p["router"]
     if e_pad != e:
@@ -83,7 +83,7 @@ def _route(cfg, p: Params, x2d: torch.Tensor, ctx=None
     ce = torch.zeros(e_pad, device=x2d.device).index_add_(
         0, top_i.reshape(-1).long(),
         torch.ones(top_i.numel(), device=x2d.device))[:e]
-    if ctx is not None and ctx.n_batch > 1:
+    if ctx is not None and ctx.n_batch > 1 and sum_aux:
         me = ctx.batch_sum(me, grad_sum=True) / ctx.n_batch
         ce = ctx.batch_sum(ce.detach())
     ce = ce / ce.sum().clamp_min(1.0)
@@ -135,11 +135,14 @@ def tp_groups(cfg, ctx, ep_axis: Optional[str]):
 
 
 def moe_forward(cfg, p: Params, x: torch.Tensor, *, groups: int = 1,
-                ep_axis: Optional[str] = None, ctx=None
+                ep_axis: Optional[str] = None, ctx=None, sum_aux: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss). See module docstring.  Without
     `ctx` (one device, no mesh) ``ep_axis`` names no mesh axis and the
-    GSPMD combine runs, as in the reference without a mesh."""
+    GSPMD combine runs, as in the reference without a mesh.  A decode
+    step, which drops the aux loss, passes ``sum_aux=False``: the batch
+    shards' statistics are then not summed (no collective over the
+    batch axes)."""
     B, S, d = x.shape
     T = B * S
     k = cfg.moe_top_k
@@ -158,7 +161,7 @@ def moe_forward(cfg, p: Params, x: torch.Tensor, *, groups: int = 1,
     cap = max(8, ((cap + 7) // 8) * 8)
 
     x2d = x.reshape(T, d)
-    top_p, top_i, aux = _route(cfg, p, x2d, ctx)
+    top_p, top_i, aux = _route(cfg, p, x2d, ctx, sum_aux)
     xg = x2d.reshape(groups, tg, d)
     dest, keep, sorted_tok, wsort = _dispatch_plan(
         cfg, top_p, top_i, groups, tg, cap, e)

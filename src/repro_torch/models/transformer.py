@@ -44,6 +44,18 @@ sublayer gathers the sequence on entry and reduce-scatters its output
 (``parallel.SeqGroup``), any other sublayer (the MoE router and experts
 included) runs on the gathered sequence and keeps its chunk.
 
+Sharded serving: with DTensor params (placed by ``Plan(serving=True)``,
+the weight-stationary plan: a TP-sharded weight stays on its model rank)
+``prefill`` and ``decode_step`` run the same per-layer local step: each
+rank its batch rows, the heads, MLP width, ``d_inner``, vocab and (with
+``moe_ep_axis``) experts of its model rank, no weight gathered over
+"model" that the plan splits (MLA and cross-attention heads run
+replicated, as in training).  The caches are DTensors in
+``Plan.cache_specs``'s layout (``init_caches(mesh=)``; a prefill places
+its own without a gather), the logits in ``Plan.logits_spec``'s (rows
+over the dp axes, vocab over "model"); see ``sharding.parallel`` for the
+split-sequence attention.  Plain tensors take the one-device path.
+
 Remat policies (``REMAT_POLICIES``, ``loss_fn(remat_policy=...)``): the
 reference's ``save_tp_out`` becomes selective activation checkpointing
 (``create_selective_checkpoint_contexts``).  Its policy saves the
@@ -68,6 +80,7 @@ from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import common, mamba as mamba_lib, moe as moe_lib
 from repro_torch.sharding import parallel
 from repro_torch.sharding.parallel import GATHER, SHARD, SLICE
+from repro_torch.sharding.planner import Plan, Spec
 from repro_torch.util import Device, resolve_device, tree_map
 
 Params = Dict[str, Any]
@@ -174,13 +187,15 @@ def _block_groups(cfg, seg: Segment, ctx, moe_ep_axis) -> Dict[str, Any]:
     return groups
 
 
-def _block_uses(p: Params, groups: Dict[str, Any]) -> Any:
+def _block_uses(p: Params, groups: Dict[str, Any], serving: bool = False
+                ) -> Any:
     """How a sharded block uses each of its weights' model-axis shards
     (see ``sharding.parallel``): a sublayer with a group computes on its
     weights' shards (Mamba on its x and z columns of ``in_proj``, a
-    SLICE; the router is whole), any other gathers them.  Under sequence
-    parallelism the norms run on the rank's sequence chunk: a SLICE, so
-    their gradients are summed over the model axis."""
+    SLICE in training, its own column block when `serving`; the router
+    is whole), any other gathers them.  Under sequence parallelism the
+    norms run on the rank's sequence chunk: a SLICE, so their gradients
+    are summed over the model axis."""
     def all_(tree, group):
         return tree_map(lambda _: GATHER if group is None else SHARD, tree)
 
@@ -190,7 +205,8 @@ def _block_uses(p: Params, groups: Dict[str, Any]) -> Any:
         if key.startswith("ln") and groups.get("seq") is not None:
             out[key] = tree_map(lambda _: SLICE, sub)
         elif key == "ssm" and group is not None:
-            out[key] = {k: SLICE if k == "in_proj" else SHARD for k in sub}
+            out[key] = {k: SLICE if k == "in_proj" and not serving else SHARD
+                        for k in sub}
         elif key == "moe":
             out[key] = {k: (all_(v, groups["shared"]) if k == "shared" else
                             all_(v, None if k == "router" else group))
@@ -218,9 +234,11 @@ def _on_sequence(groups, key: Optional[str], fn, h):
 
 
 def _mixer_forward(cfg, seg: Segment, p: Params, x, positions, groups,
-                   k_valid=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                   k_valid=None, whole_kv: bool = False
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Token-mixing sublayer(s) on a full sequence; returns (dx, cache).
-    `groups`: ``_block_groups``'s ({} on one device)."""
+    `groups`: ``_block_groups``'s ({} on one device); `whole_kv` as in
+    ``attention.gqa_forward``."""
     h = common.rmsnorm(p["ln1"], x, cfg.norm_eps)
     cache: Dict[str, Any] = {}
     parts = []
@@ -228,7 +246,8 @@ def _mixer_forward(cfg, seg: Segment, p: Params, x, positions, groups,
         a, kv = _on_sequence(groups, "attn", lambda h_, tp: (
             attn_lib.gqa_forward(cfg, p["attn"], h_, positions,
                                  causal=seg.causal, window=seg.window,
-                                 k_valid=k_valid, tp=tp)), h)
+                                 k_valid=k_valid, tp=tp,
+                                 whole_kv=whole_kv)), h)
         cache.update(kv)
         parts.append(a)
     elif seg.attn == "mla":
@@ -253,14 +272,14 @@ def _mixer_forward(cfg, seg: Segment, p: Params, x, positions, groups,
 
 def block_forward(cfg, seg: Segment, p: Params, x, positions, enc_out=None,
                   moe_groups: int = 1, moe_ep_axis=None, k_valid=None,
-                  ctx=None,
+                  ctx=None, whole_kv: bool = False,
                   ) -> Tuple[torch.Tensor, Dict[str, Any], torch.Tensor]:
     """Full-sequence block. Returns (x, cache, moe_aux).  With `ctx` (a
     sharded step) `p` is the block's local params (``_block_uses``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     groups = _block_groups(cfg, seg, ctx, moe_ep_axis)
     dx, cache = _mixer_forward(cfg, seg, p, x, positions, groups,
-                               k_valid=k_valid)
+                               k_valid=k_valid, whole_kv=whole_kv)
     x = x + dx
     if seg.cross:
         h = common.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
@@ -287,27 +306,38 @@ def block_forward(cfg, seg: Segment, p: Params, x, positions, enc_out=None,
 
 def block_decode(cfg, seg: Segment, p: Params, x, cache: Dict[str, Any],
                  pos, moe_groups: int = 1, moe_ep_axis=None,
-                 start=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                 start=None, ctx=None, layouts=None,
+                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Single-token block step. x: (B,1,d); pos: (B,); start: (B,) or None.
-    Attention caches are written in place; the SSM state comes back new."""
+    Attention caches are written in place; the SSM state comes back new.
+    With `ctx` (a sharded step) `p` and `cache` are the rank's local
+    params and cache blocks, and `layouts` says how each attention cache
+    splits over the model axis (``_cache_layouts``)."""
+    groups = _block_groups(cfg, seg, ctx, moe_ep_axis)
+    layouts = layouts or {}
+    model = None if ctx is None else ctx.tp
     h = common.rmsnorm(p["ln1"], x, cfg.norm_eps)
     new_cache: Dict[str, Any] = {}
     parts = []
     if seg.attn == "gqa":
         a, kv = attn_lib.gqa_decode(cfg, p["attn"], h,
                                     {"k": cache["k"], "v": cache["v"]},
-                                    pos, window=seg.window, start=start)
+                                    pos, window=seg.window, start=start,
+                                    tp=groups.get("attn"), model=model,
+                                    layout=layouts.get("k"))
         new_cache.update(kv)
         parts.append(a)
     elif seg.attn == "mla":
-        a, kv = attn_lib.mla_decode(cfg, p["attn"], h,
-                                    {"ckv": cache["ckv"], "k_rope": cache["k_rope"]},
-                                    pos, start=start)
+        a, kv = attn_lib.mla_decode(
+            cfg, p["attn"], h, {"ckv": cache["ckv"], "k_rope": cache["k_rope"]},
+            pos, start=start,
+            seq=model if layouts.get("ckv") == "seq" else None)
         new_cache.update(kv)
         parts.append(a)
     if seg.ssm:
         s, sc = mamba_lib.mamba_decode(cfg, p["ssm"], h,
-                                       {"conv": cache["conv"], "h": cache["h"]})
+                                       {"conv": cache["conv"], "h": cache["h"]},
+                                       groups.get("ssm"))
         new_cache.update(sc)
         parts.append(s)
     if len(parts) == 2:
@@ -321,16 +351,18 @@ def block_decode(cfg, seg: Segment, p: Params, x, cache: Dict[str, Any],
         h = common.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
         c, _ = attn_lib.gqa_decode(cfg, p["cross"], h,
                                    {"k": cache["xk"], "v": cache["xv"]},
-                                   pos, cross=True)
+                                   pos, cross=True, model=model,
+                                   layout=layouts.get("xk"))
         new_cache["xk"], new_cache["xv"] = cache["xk"], cache["xv"]
         x = x + c
     if seg.ffn:
         h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
         if seg.ffn == "mlp":
-            x = x + common.mlp(p["mlp"], h)
+            x = x + common.mlp(p["mlp"], h, groups.get("mlp"))
         else:
             out, _ = moe_lib.moe_forward(cfg, p["moe"], h, groups=moe_groups,
-                                         ep_axis=moe_ep_axis)
+                                         ep_axis=moe_ep_axis, ctx=ctx,
+                                         sum_aux=False)
             x = x + out
     return x, new_cache
 
@@ -359,7 +391,7 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator] = None, *,
 
 def _layer(seg_params: Params, i: int) -> Params:
     """Layer i's params: views into the stacked segment."""
-    return tree_map(lambda t: t[i], seg_params)
+    return tree_map(lambda t: parallel.layer(t, i), seg_params)
 
 
 def _remat_block(cfg, seg: Segment, lp: Params, x, positions, enc_out,
@@ -387,12 +419,15 @@ def _remat_block(cfg, seg: Segment, lp: Params, x, positions, enc_out,
 def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
                   remat: bool = False, want_cache: bool = False,
                   moe_groups: int = 1, moe_ep_axis=None, k_valid=None,
-                  ctx=None, remat_policy=None):
+                  ctx=None, remat_policy=None, serving: bool = False,
+                  place=None):
     """Run each segment layer by layer; returns (x, per-segment stacked
     caches, aux sum).  With `remat` (and autograd recording) each layer
     is rematerialized in backward (no caches, no pad mask), keeping what
     `remat_policy` names.  With `ctx` each layer's params are DTensor
-    views gathered at the layer."""
+    views gathered at the layer (`serving`: with the serving steps'
+    uses).  `place(j, cache)` maps each layer's cache of segment j
+    before the layers are stacked."""
     # no _grad_dtype_guard: a bf16 residual stream already gets a bf16
     # gradient in PyTorch
     remat = remat and torch.is_grad_enabled()
@@ -402,8 +437,12 @@ def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, sp in zip(segs, seg_params):
         layer_caches, auxes = [], []
-        uses = (None if ctx is None else _block_uses(
-            sp, _block_groups(cfg, seg, ctx, moe_ep_axis)))
+        uses = None
+        if ctx is not None:
+            uses = _block_uses(sp, _block_groups(cfg, seg, ctx, moe_ep_axis),
+                               serving)
+            sp = ctx.localize_placed(sp, uses)
+        gather = ctx is not None and parallel.is_sharded(sp)
         for i in range(seg.n_layers):
             if remat:
                 x, aux = _remat_block(cfg, seg, _layer(sp, i), x, positions,
@@ -412,14 +451,16 @@ def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
                 auxes.append(aux)
                 continue
             lp = _layer(sp, i)
-            if ctx is not None:
+            if gather:
                 lp = ctx.localize_tree(lp, uses)
             x, cache, aux = block_forward(cfg, seg, lp, x,
                                           positions, enc_out, moe_groups,
-                                          moe_ep_axis, k_valid, ctx=ctx)
+                                          moe_ep_axis, k_valid, ctx=ctx,
+                                          whole_kv=want_cache)
             auxes.append(aux)
             if want_cache:
-                layer_caches.append(cache)
+                layer_caches.append(cache if place is None else
+                                    place(len(caches), cache))
         if want_cache:
             caches.append({k: torch.stack([c[k] for c in layer_caches])
                            for k in layer_caches[0]})
@@ -628,11 +669,17 @@ def init_cache(cfg: ModelConfig, seg: Segment, n_layers: int, batch: int,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                enc_len: int = 0, *, device: Device = "cuda"
+                enc_len: int = 0, *, device: Device = "cuda", mesh=None
                 ) -> List[Dict[str, Any]]:
     """Zeroed decode caches, one dict per segment (``device="meta"`` gives
-    shapes and dtypes only)."""
+    shapes and dtypes only).  With `mesh` (a ``DeviceMesh``) each leaf is
+    a DTensor in ``Plan.cache_specs``'s layout, each rank allocating only
+    its own block on `device`."""
     device = resolve_device(device)
+    if mesh is not None:
+        metas = init_caches(cfg, batch, max_seq, enc_len, device="meta")
+        specs = Plan.for_mesh(mesh).cache_specs(cfg, metas)
+        return parallel.tree_zeros(metas, specs, mesh, device)
     return [init_cache(cfg, seg, seg.n_layers, batch, max_seq, enc_len,
                        device=device)
             for seg in build_segments(cfg)]
@@ -641,11 +688,40 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 def grow_caches(caches: List[Dict[str, Any]], into: List[Dict[str, Any]]
                 ) -> List[Dict[str, Any]]:
     """Copy prefill caches (sized to the prompt) into the front of decode
-    buffers such as :func:`init_caches` gives; returns `into`."""
+    buffers such as :func:`init_caches` gives; returns `into`.  DTensor
+    caches (a sharded prefill's) go into DTensor buffers
+    (``init_caches(mesh=)``), each rank filling its own block
+    (``parallel.grow_into``: a sequence-sharded cache whose slots move to
+    other ranks is gathered over "model" on the way)."""
     for cache, buf in zip(caches, into):
         for k, v in cache.items():
+            if isinstance(buf[k], parallel.DTensor):
+                parallel.grow_into(v, buf[k])
+                continue
             buf[k][tuple(slice(0, n) for n in v.shape)].copy_(v)
     return into
+
+
+def _trailing_window(seg: Segment, cache: Dict[str, Any]) -> Dict[str, Any]:
+    """A windowed layer's prefill cache (one layer: k/v (B, S, kv, hd))
+    keeps only its trailing window, as a ring buffer."""
+    if not seg.window or cache.get("k") is None:
+        return cache
+    W = seg.window
+    S = cache["k"].shape[1]
+    if S <= W:
+        return cache
+    # slot of absolute position p is (p % W): index i in the trailing-window
+    # slice holds p = S - W + i  ->  roll by S % W
+    return {k: (torch.roll(v[:, S - W:], S % W, dims=1)
+                if k in ("k", "v") else v) for k, v in cache.items()}
+
+
+def _cache_specs(cfg: ModelConfig, ctx, batch: int, seq: int, enc_len: int):
+    """(global meta caches, their ``Plan.cache_specs``) of a sharded
+    prefill of `batch` rows of `seq` tokens."""
+    metas = init_caches(cfg, batch, seq, enc_len, device="meta")
+    return metas, Plan.for_mesh(ctx.mesh).cache_specs(cfg, metas)
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -661,32 +737,89 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     positions they would have in the unpadded prompt. Together the two
     make a padded prefill bit-identical (masked keys contribute exactly
     zero softmax weight) to the unpadded one.
+
+    With DTensor params (a sharded step, see the module docstring) every
+    rank passes the same global batch (or DTensor rows) and gets the
+    caches as DTensors in ``Plan.cache_specs``'s layout and the logits in
+    ``Plan.logits_spec``'s: each rank computes its rows, and of each
+    cache its kv heads or ``d_inner`` channels where its layer splits
+    them, else the whole, which it narrows to its block.
     """
     segs = build_segments(cfg)
-    enc_out = _encode(cfg, params, batch) if cfg.is_encoder_decoder else None
-    x = embed_inputs(cfg, params, batch)
+    rows = {k: v for k, v in batch.items()
+            if k not in ("positions", "pad_mask")}
+    ctx, rows = _sharded_step(params, rows, None)
+    enc_out = (_encode(cfg, params, rows, ctx=ctx)
+               if cfg.is_encoder_decoder else None)
+    x = embed_inputs(cfg, params, rows, ctx)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
+    def place(j, cache):
+        return _trailing_window(segs[j], cache)
+    if ctx is not None:
+        metas, specs = _cache_specs(
+            cfg, ctx, batch["tokens"].shape[0], x.shape[1],
+            0 if enc_out is None else enc_out.shape[1])
+        place = _placed_in(segs, ctx, metas, specs)
     x, caches, _ = _run_segments(cfg, segs, params["segments"], x, positions,
                                  enc_out, want_cache=True,
                                  moe_groups=moe_groups,
-                                 moe_ep_axis=moe_ep_axis, k_valid=pad_mask)
-    x = common.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    logits = common.unembed(cfg, params, x)
-    # prefill caches for windowed segments keep only the trailing window
-    out_caches = []
-    for seg, cache in zip(segs, caches):
-        if seg.window and cache.get("k") is not None:
-            W = seg.window
-            S = cache["k"].shape[2]
-            if S > W:
-                # slot of absolute position p is (p % W): index i in the
-                # trailing-window slice holds p = S - W + i  ->  roll by S % W
-                cache = {k: (torch.roll(v[:, :, S - W:], S % W, dims=2)
-                             if k in ("k", "v") else v)
-                         for k, v in cache.items()}
-        out_caches.append(cache)
-    return out_caches, logits
+                                 moe_ep_axis=moe_ep_axis, k_valid=pad_mask,
+                                 ctx=ctx, serving=True, place=place)
+    x = common.rmsnorm(_norm_on_chunk(ctx, params["final_norm"]),
+                       x[:, -1:, :], cfg.norm_eps)
+    tp = _vocab_tp(cfg, ctx)
+    logits = common.unembed(cfg, _table(cfg, params, ctx), x, tp)
+    if ctx is None:
+        return caches, logits
+    caches = parallel.tree_from_shards(caches, specs, metas, ctx.mesh)
+    return caches, ctx.rows_out(logits, shard_last=tp is not None)
+
+
+def _placed_in(segs, ctx, metas, specs):
+    """A layer's prefill cache of segment j, windowed, as this rank's
+    block of the layout `specs` gives the segment's stacked caches."""
+    def place(j, cache):
+        cache = _trailing_window(segs[j], cache)
+        return {k: parallel.shard_of(v, ctx.mesh, Spec(*specs[j][k][1:]),
+                                     metas[j][k].shape[1:])
+                for k, v in cache.items()}
+    return place
+
+
+def _cache_layouts(ctx, seg: Segment, cache: Dict[str, Any], groups,
+                   rows: int) -> Dict[str, Optional[str]]:
+    """How each attention cache of a segment (stacked DTensors) splits
+    over the model axis ("heads", "seq" or None).  Raises on a cache the
+    step cannot run on: not a DTensor, rows split otherwise than the
+    step's, a split the layers do not take, or SSM state not split as
+    the layer's channels are."""
+    out: Dict[str, Optional[str]] = {}
+    for k, v in cache.items():
+        if not isinstance(v, parallel.DTensor) or \
+                parallel.local(v).shape[1] != rows:
+            raise ValueError(
+                f"sharded decode: cache {k!r} is not a DTensor holding "
+                f"this rank's {rows} rows (init_caches(mesh=) places one)")
+        d = (parallel.model_dim(v, ctx.tp_axis) if ctx.tp is not None
+             else None)
+        if k in ("k", "v", "xk", "xv", "ckv", "k_rope"):
+            lay = {None: None, 2: "seq", 3: "heads"}.get(d, "?")
+            if lay == "?" or (lay == "heads" and k in ("ckv", "k_rope")):
+                raise ValueError(f"sharded decode: cache {k!r} split on "
+                                 f"dim {d} over {ctx.tp_axis!r}")
+            out[k] = lay
+        else:                                   # conv (dim 3), h (dim 2)
+            want = None if groups.get("ssm") is None else \
+                (3 if k == "conv" else 2)
+            if d != want:
+                raise ValueError(
+                    f"sharded decode: cache {k!r} split on dim {d}, the "
+                    f"layer's channels on {want}")
+    if out.get("k") != out.get("v") or out.get("xk") != out.get("xv") or \
+            out.get("ckv") != out.get("k_rope"):
+        raise ValueError(f"sharded decode: paired caches split apart {out}")
+    return out
 
 
 def decode_step(cfg: ModelConfig, params: Params, caches: List[Dict[str, Any]],
@@ -697,18 +830,47 @@ def decode_step(cfg: ModelConfig, params: Params, caches: List[Dict[str, Any]],
 
     start (B,) marks the first real (non-pad) cache slot per row; pad
     slots below it are masked out and RoPE runs pad-relative.  The caches
-    are updated in place and returned.
+    are updated in place and returned.  With DTensor params the caches
+    are DTensors in ``Plan.cache_specs``'s layout (``init_caches(mesh=)``,
+    or a sharded prefill's grown into them), `tokens` the global rows or
+    a DTensor of them, and the logits come back in ``Plan.logits_spec``'s
+    layout.
     """
     segs = build_segments(cfg)
-    x = common.embed(params, tokens)
+    rows = {"tokens": tokens, "pos": pos}
+    if start is not None:
+        rows["start"] = start
+    ctx, rows = _sharded_step(params, rows, None)
+    tokens, pos, start = rows["tokens"], rows["pos"], rows.get("start")
+    tp = _vocab_tp(cfg, ctx)
+    x = common.embed({"embed": _top(params, ctx, "embed",
+                                    GATHER if tp is None else SHARD)},
+                     tokens, tp)
     for seg, sp, cache in zip(segs, params["segments"], caches):
+        local, uses, layouts = cache, None, None
+        if ctx is not None:
+            groups = _block_groups(cfg, seg, ctx, moe_ep_axis)
+            uses = _block_uses(sp, groups, serving=True)
+            sp = ctx.localize_placed(sp, uses)
+            layouts = _cache_layouts(ctx, seg, cache, groups,
+                                     tokens.shape[0])
+            local = {k: parallel.local(v) for k, v in cache.items()}
+        gather = ctx is not None and parallel.is_sharded(sp)
         for i in range(seg.n_layers):
-            lc = {k: v[i] for k, v in cache.items()}
-            x, nc = block_decode(cfg, seg, _layer(sp, i), x, lc, pos,
+            lp = _layer(sp, i)
+            if gather:
+                lp = ctx.localize_tree(lp, uses)
+            lc = {k: v[i] for k, v in local.items()}
+            x, nc = block_decode(cfg, seg, lp, x, lc, pos,
                                  moe_groups=moe_groups,
-                                 moe_ep_axis=moe_ep_axis, start=start)
+                                 moe_ep_axis=moe_ep_axis, start=start,
+                                 ctx=ctx, layouts=layouts)
             for k, v in nc.items():
                 if v is not lc[k]:     # attention buffers were written in place
-                    cache[k][i].copy_(v)
-    x = common.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return caches, common.unembed(cfg, params, x)
+                    local[k][i].copy_(v)
+    x = common.rmsnorm(_norm_on_chunk(ctx, params["final_norm"]), x,
+                       cfg.norm_eps)
+    logits = common.unembed(cfg, _table(cfg, params, ctx), x, tp)
+    if ctx is None:
+        return caches, logits
+    return caches, ctx.rows_out(logits, shard_last=tp is not None)

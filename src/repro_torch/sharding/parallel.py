@@ -35,6 +35,22 @@ sequence between sublayers instead (:class:`SeqGroup`): all-gathers and
 reduce-scatters on the sequence take the place of ``copy_in`` and
 ``reduce_out``.  At one device every placement is ``Replicate``,
 no collective runs, and the layers compute what the plain path computes.
+
+Serving (``transformer.prefill`` / ``decode_step`` on DTensor params under
+the weight-stationary ``Plan(serving=True)``) runs on the same
+:class:`Ctx`, with the caches as DTensors in ``Plan.cache_specs``'s
+layout: the batch over the dp axes, and over "model" the kv heads where
+they divide it, else the sequence (flash-decode style), and Mamba's
+``d_inner``.  A head-sharded cache is the rank's kv heads' whole
+history; a sequence-sharded one is its run of slots for every head, and
+attention over it takes :func:`split_softmax` (a local max, the max over
+the model group, then the sums and the weighted values summed over it)
+and writes a new token's key into the one rank that owns its slot
+(:func:`write_owned`).  :func:`shard_of` places a prefill's local caches
+in that layout without a gather; :func:`grow_into` copies them into
+larger decode buffers.  Under ``no_grad`` or ``inference_mode`` a weight
+already in the layout a layer computes with is taken as its local
+tensor, with no redistribution (:meth:`Ctx.localize`).
 """
 from __future__ import annotations
 
@@ -192,6 +208,165 @@ class Group:
             dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
         return x
 
+    def min(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise min over the group, outside autograd."""
+        x = x.detach()
+        if self.size > 1:
+            x = x.clone()
+            dist.all_reduce(x, op=dist.ReduceOp.MIN, group=self.group)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The group's blocks of `x` concatenated on `dim`, rank order
+        (outside autograd: the serving steps' activations)."""
+        if self.size == 1:
+            return x
+        y = torch.ops._c10d_functional.all_gather_into_tensor(
+            x.movedim(dim, 0).contiguous(), self.size, self.group.group_name)
+        return torch.ops._c10d_functional.wait_tensor(y).movedim(0, dim)
+
+
+def local_block(global_shape, mesh, pls) -> tuple:
+    """(shape, offset) of this rank's block of a tensor of `global_shape`
+    placed by `pls` on `mesh`, every split even (DTensor's rule: mesh
+    dims in order, each splitting the block the ones before it left).
+    Plain arithmetic on the mesh coordinate, so it runs under
+    ``FakeTensorMode`` too."""
+    shape, off = list(global_shape), [0] * len(global_shape)
+    for i, pl in enumerate(pls):
+        if not pl.is_shard():
+            continue
+        n, d = mesh.size(i), pl.dim
+        if shape[d] % n:
+            raise ValueError(f"local_block: dim {d} of {tuple(global_shape)}"
+                             f" does not split evenly over {n} ranks")
+        shape[d] //= n
+        off[d] += mesh.get_local_rank(i) * shape[d]
+    return tuple(shape), tuple(off)
+
+
+def split_softmax(logits: torch.Tensor, g: Group, f64_sum: bool = False
+                  ) -> torch.Tensor:
+    """This rank's part of a softmax over a last axis split over `g`
+    (each rank holds a run of the keys): the local max, its max over the
+    group, the exponentials against it, and their sum over the group (in
+    f64 with `f64_sum`).  The caller sums its weighted values over `g`.
+    A rank whose keys are all masked holds exponentials of 0."""
+    m = g.max(logits.amax(dim=-1, keepdim=True))
+    e = torch.exp(logits - m)
+    s = e.sum(dim=-1, keepdim=True,
+              dtype=torch.float64 if f64_sum else None)
+    return e / g.reduce_out(s).to(e.dtype)
+
+
+def write_owned(buf: torch.Tensor, val: torch.Tensor, slot: torch.Tensor,
+                offset: int) -> torch.Tensor:
+    """``buf[b, slot[b] - offset] = val[b, 0]`` in place, on the rows
+    whose global slot falls in this rank's run ``[offset, offset + n)``
+    of a sequence-sharded cache; the other rows keep their slot.  Rows
+    sit at different positions, so the write is masked row by row."""
+    n = buf.shape[1]
+    local = slot - offset
+    mine = (local >= 0) & (local < n)
+    idx = local.clamp(0, n - 1)
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    keep = buf[rows, idx]
+    mask = mine.view(-1, *([1] * (keep.ndim - 1)))
+    buf[rows, idx] = torch.where(mask, val[:, 0].to(buf.dtype), keep)
+    return buf
+
+
+def model_dim(t: Any, axis: str) -> Optional[int]:
+    """The dim of a DTensor that mesh axis `axis` splits (None when it
+    splits none, or `t` is a plain tensor)."""
+    if not isinstance(t, DTensor):
+        return None
+    names = t.device_mesh.mesh_dim_names
+    for name, pl in zip(names, t.placements):
+        if name == axis and pl.is_shard():
+            return pl.dim
+    return None
+
+
+def shard_of(t: torch.Tensor, mesh, spec: Spec, global_shape) -> torch.Tensor:
+    """This rank's block, in `spec`'s layout, of a tensor each of whose
+    dims the rank holds either whole or already as its own block (a
+    prefill's cache: its batch rows, its kv heads or ``d_inner``
+    channels where it computed only those, the whole sequence).  Whole
+    dims are narrowed, nothing is gathered; a dim that is neither raises."""
+    shape, off = local_block(global_shape, mesh, placements(spec, mesh))
+    for d, (n, have, full, o) in enumerate(zip(shape, t.shape,
+                                               global_shape, off)):
+        if have == n:
+            continue
+        if have != full:
+            raise ValueError(
+                f"shard_of: dim {d} holds {have} of {full}; spec {spec} "
+                f"wants this rank's {n} at {o}")
+        t = t.narrow(d, o, n)
+    return t
+
+
+def from_shards(t: torch.Tensor, mesh, spec: Spec, global_shape) -> DTensor:
+    """A DTensor of global `global_shape` placed by `spec` from this
+    rank's block `t` (no collective)."""
+    shape = torch.Size(global_shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(t.contiguous(), mesh, placements(spec, mesh),
+                              run_check=False, shape=shape, stride=stride)
+
+
+def layer(t: torch.Tensor, i: int) -> torch.Tensor:
+    """Layer `i` of a stacked leaf (``t[i]``).  Outside autograd a DTensor
+    gets it from its local tensor (the layer dim is never split): DTensor
+    indexing cannot run under ``inference_mode``."""
+    if not isinstance(t, DTensor) or torch.is_grad_enabled():
+        return t[i]
+    pl = [Shard(p.dim - 1) if p.is_shard() else p for p in t.placements]
+    loc = t._local_tensor[i]
+    return DTensor.from_local(loc, t.device_mesh, pl, run_check=False,
+                              shape=t.shape[1:], stride=t.stride()[1:])
+
+
+def tree_from_shards(tree: Any, specs: Any, metas: Any, mesh) -> Any:
+    """:func:`from_shards` over a tree (`metas`: global-shape tensors)."""
+    return tree_map(lambda t, s, m: from_shards(t, mesh, s, m.shape),
+                    tree, specs, metas)
+
+
+def tree_zeros(metas: Any, specs: Any, mesh, device) -> Any:
+    """Zeroed DTensors of `metas`' shapes and dtypes placed by `specs`,
+    each rank allocating its own block on `device`."""
+    def one(m, spec):
+        shape, _ = local_block(m.shape, mesh, placements(spec, mesh))
+        return from_shards(torch.zeros(shape, dtype=m.dtype, device=device),
+                           mesh, spec, m.shape)
+    return tree_map(one, metas, specs)
+
+
+def grow_into(src: DTensor, dst: DTensor) -> None:
+    """Copy `src` into the front of `dst` (every dim of src no longer
+    than dst's), both DTensors on one mesh, each rank into its own block.
+    A mesh dim that splits the two differently (a sequence-sharded cache
+    outgrowing its slots: the larger buffer's run on rank r holds slots
+    that other ranks computed) is gathered on src first."""
+    mesh = dst.device_mesh
+    pl = [s if s == d and (not s.is_shard()
+                           or src.shape[s.dim] == dst.shape[s.dim])
+          else Replicate() for s, d in zip(src.placements, dst.placements)]
+    if pl != list(src.placements):
+        src = src.redistribute(mesh, pl)
+    s_shape, s_off = local_block(src.shape, mesh, pl)
+    d_shape, d_off = local_block(dst.shape, mesh, dst.placements)
+    take, put = [], []
+    for so, sn, do, dn in zip(s_off, s_shape, d_off, d_shape):
+        lo, hi = max(so, do), min(so + sn, do + dn)
+        if hi <= lo:
+            return
+        take.append(slice(lo - so, hi - so))
+        put.append(slice(lo - do, hi - do))
+    dst._local_tensor[tuple(put)].copy_(src._local_tensor[tuple(take)])
+
 
 class SeqGroup:
     """The model axis under sequence parallelism (Megatron-style): the
@@ -345,6 +520,9 @@ class Ctx:
             part = name in self.batch_axes or (
                 model and use != GATHER and self.tp is not None)
             grad.append(Partial() if part else Replicate())
+        if not torch.is_grad_enabled() and compute == list(t.placements):
+            # serving: the weight is already where it computes
+            return t._local_tensor
         # redistributed even to its own placements: the backward brings
         # the gradient into the parameter's placements
         return t.redistribute(self.mesh, compute).to_local(
@@ -352,6 +530,23 @@ class Ctx:
 
     def localize_tree(self, tree: Any, uses: Any) -> Any:
         return tree_map(lambda t, u: self.localize(t, u), tree, uses)
+
+    def localize_placed(self, tree: Any, uses: Any) -> Any:
+        """Outside autograd, each leaf of a stacked segment that is
+        already in the layout its layer computes with, as its local
+        tensor (indexed per layer with no DTensor op); the others stay
+        DTensors, gathered layer by layer."""
+        if torch.is_grad_enabled():
+            return tree
+        return tree_map(lambda t, u: self.localize(t, u)
+                        if self._placed(t, u) else t, tree, uses)
+
+    def _placed(self, t, use: str) -> bool:
+        if not isinstance(t, DTensor):
+            return True
+        return all(not pl.is_shard() or (name == self.tp_axis
+                                         and use == SHARD)
+                   for name, pl in zip(self.names, t.placements))
 
     # ------------------------------------------------------- batch
     def batch_index(self) -> int:
@@ -361,9 +556,31 @@ class Ctx:
             idx = idx * g.size + g.rank
         return idx
 
+    def rows_placements(self, shard_last: bool = False, ndim: int = 0
+                        ) -> list:
+        """Placements of a tensor split on its rows over the batch axes
+        (and with `shard_last` on its last dim over the model axis)."""
+        return [Shard(0) if n in self.batch_axes else
+                (Shard(ndim - 1) if shard_last and n == self.tp_axis
+                 else Replicate()) for n in self.names]
+
+    def rows_out(self, y: torch.Tensor, *, shard_last: bool = False
+                 ) -> DTensor:
+        """This rank's output rows (and vocab shard: the layout of
+        ``Plan.logits_spec``) as a DTensor (no collective)."""
+        return DTensor.from_local(
+            y, self.mesh, self.rows_placements(shard_last, y.ndim),
+            run_check=False)
+
     def local_batch(self, v: torch.Tensor) -> torch.Tensor:
-        """This rank's rows of a batch leaf, the global batch that every
-        rank holds alike (sliced, no collective)."""
+        """This rank's rows of a batch leaf: the global batch that every
+        rank holds alike (sliced, no collective), or a DTensor (its
+        local rows, redistributed to the batch split if it is not)."""
+        if isinstance(v, DTensor):
+            pl = self.rows_placements()
+            if list(v.placements) != pl:
+                v = v.redistribute(self.mesh, pl)
+            return v.to_local()
         n = v.shape[0] // self.n_batch
         i = self.batch_index()
         return v[i * n:(i + 1) * n]
@@ -379,11 +596,7 @@ class Ctx:
                    ) -> torch.Tensor:
         """Every rank's output rows (and vocab shards: the layout of
         ``Plan.logits_spec``) gathered into the full tensor."""
-        pl = [Shard(0) if n in self.batch_axes else
-              (Shard(y.ndim - 1) if shard_last and n == self.tp_axis
-               else Replicate()) for n in self.names]
-        return DTensor.from_local(y, self.mesh, pl,
-                                  run_check=False).full_tensor()
+        return self.rows_out(y, shard_last=shard_last).full_tensor()
 
 
 def context(params: Any, batch: Dict[str, Any], *, act_spec=None

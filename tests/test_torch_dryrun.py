@@ -17,7 +17,10 @@
   rank's work is its own share (on (16, 16) the smoke widths do not
   divide the model axis, so a model rank repeats replicated work,
   except for the archs the plan runs as pure data parallelism).  A
-  prefill and a decode cell on (2, 2) too.
+  prefill and a decode cell on (2, 2) too, on the weight-stationary
+  serving layout: the argument bytes are the rank's blocks of the
+  serving plan's params, the batch rows and (decode) the caches, the
+  params below the gathered weights' bytes, and no all-gather.
 * The reference's ``sp``, ``remat_policy`` and ``save_sp`` overrides
   run a sequence-parallel step with the ``save_tp_out`` policy;
   ``save_sp`` without ``sp`` raises.
@@ -162,12 +165,32 @@ def test_run_cell_with_the_reference_overrides():
 
 
 def test_run_cell_serving_on_a_fake_group():
+    """The serving cells run on the weight-stationary layout: each rank is
+    handed its blocks of the serving plan's params, of the batch rows
+    and (decode) of the caches, and no weight is gathered."""
+    import torch
+    from repro_torch.util import tree_leaves
     recs = _subprocess([__file__, "serve", "2x2", "llama3.2-1b"])
-    for kind in ("prefill", "decode"):
+    cfg = configs.get_smoke("llama3.2-1b")
+    gathered = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(dryrun._abstract_params(cfg)))
+    for shape in SERVE_CELLS:
+        kind = shape.kind
         rec = recs[kind]
         assert rec["kind"] == kind
         _check_record(rec, "llama3.2-1b", "2x2")
         assert rec["cache_bytes_per_device"] > 0
+        batch = dryrun._fake_batch(cfg, kind, shape.global_batch,
+                                   shape.seq_len, torch.device("meta"))
+        rows = sum(t.numel() * t.element_size()
+                   for t in batch.values()) / 2      # over "data"
+        caches = rec["cache_bytes_per_device"] if kind == "decode" else 0
+        assert rec["memory"]["argument_bytes"] == \
+            rec["params_bytes_per_device"] + caches + rows
+        assert rec["params_bytes_per_device"] < gathered
+        # llama's every weight is split over "model" or replicated:
+        # nothing to gather
+        assert rec["collectives"]["all-gather"] == 0
 
 
 @pytest.mark.parametrize("arch", configs.names())
