@@ -133,7 +133,21 @@ Phases (any failure raises and the script exits non-zero):
      15c's subprocess, the dry-run of hymba-1.5b x ``decode_32k`` on the
      fake (16, 16) group (the sharded decode step): keys, 0 launches,
      collective bytes, and the traced peak a device beside the analytic
-     one and the whole weights' bytes.
+     one and the whole weights' bytes;
+ 17. the paper's dynamic resource management on the card: (a)
+     ``examples/torch_quickstart.py`` with no device flag in a
+     subprocess, its printed values those of the reference quickstart,
+     its pilot startup and CU overhead printed; (b) the Fig-6 K-Means
+     CUs (``kmeans_fit`` with K1 at 100k x 500, d 3) of three tenants
+     under DRF (weights 1, 1, 2, each queue capped at 2 chips) on one
+     pilot of 4 lease slots, each CU's draw staged from the GFS archive
+     through the pilot's Prefetcher: with the first wave running, the
+     ControlPlane drains 2 slots (the CUs there requeue onto the
+     survivors) and then grows the pilot back.  Every CU ends DONE, the
+     requeued ones on surviving slots, with centroids and cost bitwise
+     those of the same fit alone; K1's scan and merge counts are exact
+     for the fits run; no lease slot is held twice; no queue is charged
+     past its cap; GFS moves each dataset's bytes once.
 
 Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
 it and reads them after.  Phase 11b sets K3's count to 0 before it and
@@ -146,6 +160,8 @@ phase 14a around its plain steps (``launches_plain``), and phase 15d
 around its steps (``launches_save_tp_out``), and phase 16a around its
 prefills and decode steps (``launches_serve_sharded``).
 ``launches_dryrun`` is the 15c subprocess's own count over its trace (0).
+Phase 17b sets K1's counts to 0 just before its CUs are submitted and
+reads them when all are done (``launches_elastic``).
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -160,6 +176,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -344,6 +361,18 @@ MICRO_TASKS = 10_000   # no-op micro-tasks timed (and a tenth of them)
 # no-op CUs timed: the per-CU path scans its queue each round, so its
 # cost per task grows with the backlog; two sizes show the growth
 CU_TASKS = (1_000, 2_000)
+# phase 17: the quickstart's subprocess, then the Fig-6 K-Means CUs under
+# elastic multi-tenant scheduling at the paper's 100k x 500 scenario
+QUICKSTART_TIMEOUT = 300
+ELASTIC_SCENARIO = "100k_points_500_clusters"
+ELASTIC_TENANTS = (("t0", 1.0), ("t1", 1.0), ("t2", 2.0))   # DRF weights
+ELASTIC_CUS = 4        # CUs a tenant submits, CU j on draw j
+ELASTIC_CAP = 2        # each tenant queue's max_chips
+ELASTIC_SLOTS = 4      # lease slots of the K-Means pilot
+ELASTIC_RESERVE = 2    # ...and of the pilot the shrink hands chips to
+ELASTIC_SHRINK = 2     # slots the ControlPlane drains, then grants back
+ELASTIC_SEED = 170
+ELASTIC_TIMEOUT = 300.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3237,6 +3266,319 @@ def phase_serve_sharded(torch, dev, card: str, plain: dict) -> dict:
     return rec
 
 
+def phase_quickstart(card: str) -> dict:
+    """17a. ``examples/torch_quickstart.py`` with no device flag in a
+    subprocess: its pilot lands on the card, and the values it prints are
+    the reference quickstart's (the eight map results, the HPC stage at
+    ``.3e``, the Mode-I map_reduce sum)."""
+    print("phase 17a: examples/torch_quickstart.py on the card")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "torch_quickstart.py")],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=QUICKSTART_TIMEOUT)
+    except subprocess.TimeoutExpired as e:
+        check(False, f"17a: over {QUICKSTART_TIMEOUT} s; "
+              f"{str(e.output)[-2000:]}")
+    wall = time.perf_counter() - t0
+    out = proc.stdout
+    check(proc.returncode == 0, f"17a: exit {proc.returncode}; {out[-3000:]}")
+    patterns = {
+        "pilot": r"ACTIVE on 1 chip\(s\) \((\w+)\) in ([\d.]+) ms",
+        "maps": r"\[2\] map results: (\[.*\])",
+        "hpc": r"\[3\] HPC stage -> (\S+) \(CU overhead ([\d.]+) ms\)",
+        "sum": r"\(spawn ([\d.]+) ms\) map_reduce sum = (\d+)"}
+    found = {key: re.search(p, out) for key, p in patterns.items()}
+    check(all(found.values()) and out.rstrip().endswith("done."),
+          f"17a: unexpected output: {out[-2000:]}")
+    want = (str([i * i for i in range(8)]),
+            f"{sum(i * i for i in range(1024)):.3e}", "8386560")
+    got = (found["maps"][1], found["hpc"][1], found["sum"][2])
+    check(found["pilot"][1] == "gpu", f"17a: the pilot is on "
+          f"{found['pilot'][1]}, not the card")
+    check(got == want, f"17a: printed {got}, want {want}")
+    rec = {"platform": found["pilot"][1],
+           "pilot_startup_ms": float(found["pilot"][2]),
+           "cu_overhead_ms": float(found["hpc"][2]),
+           "mode1_spawn_ms": float(found["sum"][1]),
+           "maps": got[0], "hpc": got[1], "map_reduce_sum": got[2],
+           "subprocess_s": wall}
+    print(f"  quickstart on the {rec['platform']}: maps {got[0]}, HPC "
+          f"{got[1]}, sum {got[2]} (the reference's values); pilot startup "
+          f"{rec['pilot_startup_ms']} ms, CU overhead "
+          f"{rec['cu_overhead_ms']} ms, Mode-I spawn "
+          f"{rec['mode1_spawn_ms']} ms; subprocess {wall:.3f} s [{card}]")
+    return rec
+
+
+def wait_for(cond, what: str, timeout: float = ELASTIC_TIMEOUT) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"17b: no {what} after "
+              f"{timeout} s")
+        time.sleep(0.001)
+
+
+def lease_conflicts(events: list) -> list:
+    """Replays a ResourceManager's lease log: every grant of a slot some
+    pilot still holds, and every reclaim or release by a non-holder."""
+    held, bad = {}, []
+    for e in events:
+        for i in e["indices"]:
+            if e["event"] == "grant":
+                if i in held:
+                    bad.append((e["event"], e["pilot"], i, held[i]))
+                held[i] = e["pilot"]
+            elif e["event"] in ("reclaim", "release"):
+                if held.get(i) != e["pilot"]:
+                    bad.append((e["event"], e["pilot"], i, held.get(i)))
+                held.pop(i, None)
+            else:
+                held.pop(i, None)
+    return bad
+
+
+def phase_elastic(torch, dev, km, ops, card: str) -> dict:
+    """17b. The paper's Fig-6 K-Means CUs under elastic multi-tenant
+    scheduling: one pilot of ELASTIC_SLOTS lease slots on the card, DRF
+    over three tenant queues (weights 1, 1, 2; each capped at
+    ELASTIC_CAP chips), ELASTIC_CUS CUs a tenant of ``kmeans_fit`` with
+    K1 at 100k x 500, d 3, each staging its draw from the GFS archive
+    through the pilot's Prefetcher.  With the first wave running, the
+    ControlPlane shrinks the pilot by ELASTIC_SHRINK slots (drain with
+    preemption: the CUs there are cloned onto the survivors), and once
+    the clones run, grows it back.  K1's counts are set to 0 just before
+    the CUs are submitted and read once all of them are done."""
+    from repro_torch.analytics.engine import AnalyticsEngine
+    from repro_torch.core import (ComputeUnit, ComputeUnitDescription,
+                                  CUState, DataPlane, DataRef, DeviceGrid,
+                                  DrfPolicy, GFS_ARCHIVE, Link,
+                                  PilotDescription, PilotManager,
+                                  QueueConfig, ResourceManager, place,
+                                  replicated_sharding)
+    n, k = km.PAPER_SCENARIOS[ELASTIC_SCENARIO]
+    print(f"phase 17b: {len(ELASTIC_TENANTS)} tenants x {ELASTIC_CUS} "
+          f"K-Means CUs ({n} x {k}, d {km.PAPER_DIM}) under DRF on "
+          f"{ELASTIC_SLOTS} slots, shrink by {ELASTIC_SHRINK} and grow back")
+    draws = [km.make_dataset(n, km.PAPER_DIM, seed=ELASTIC_SEED + j,
+                             device=dev) for j in range(ELASTIC_CUS)]
+    # each tenant submits its CUs in two halves: the first before the
+    # shrink, the second once the shrink is done (CU j reads draw j)
+    half = ELASTIC_CUS // 2
+    jobs = [(tenant, j, ELASTIC_SEED + 10 * t + j)
+            for wave in (range(half), range(half, ELASTIC_CUS))
+            for t, (tenant, _) in enumerate(ELASTIC_TENANTS) for j in wave]
+    n_first = len(ELASTIC_TENANTS) * half
+    # each CU's fit alone, outside the counting window
+    solo, per_fit = {}, set()
+    for tenant, j, seed in jobs:
+        eng = AnalyticsEngine(DeviceGrid([dev]), DataPlane())
+        eng.put("pts", draws[j])
+        before = (ops.LAUNCHES, ops.MERGE_LAUNCHES)
+        solo[seed] = km.kmeans_fit(eng, "pts", k, iters=ITERS,
+                                   use_kernel=True, seed=seed)
+        per_fit.add((ops.LAUNCHES - before[0],
+                     ops.MERGE_LAUNCHES - before[1]))
+    torch.cuda.synchronize()
+    check(len(per_fit) == 1 and next(iter(per_fit))[0] == ITERS,
+          f"17b: solo fits launched K1 {per_fit} (scan, merge) times")
+    (scan_per_fit, merge_per_fit), = per_fit
+
+    pm = PilotManager(ResourceManager(
+        devices=[dev] * (ELASTIC_SLOTS + ELASTIC_RESERVE)),
+        drain_preempt_after_s=0.0)
+    data = DataPlane()
+    lock = threading.Lock()
+    gate = threading.Event()
+    started, invocations, finished, binds, charges = [], [], [], [], []
+    try:
+        # the CUs wait for their stage-in to land: no remote reads
+        pilot = pm.submit(PilotDescription(
+            n_chips=ELASTIC_SLOTS, name="kmeans", enable_speculation=False,
+            scheduler_policy=DrfPolicy(), staging_delay_rounds=10_000,
+            queues=[QueueConfig(t, weight=w, max_chips=ELASTIC_CAP)
+                    for t, w in ELASTIC_TENANTS]), data_registry=data)
+        reserve = pm.submit(PilotDescription(
+            n_chips=ELASTIC_RESERVE, name="reserve",
+            enable_speculation=False))
+        for j, pts in enumerate(draws):
+            data.put(f"pts{j}", place(pts, replicated_sharding([dev])),
+                     pilot=GFS_ARCHIVE)
+        ds_bytes = sum(data.get(f"pts{j}").nbytes for j in range(len(draws)))
+        sched = pilot.agent.scheduler
+        # record every bind, and each queue's charged chips at every charge
+        bind_round, charge = sched.schedule_round, sched.queues.charge
+
+        def logged_round():
+            out = bind_round()
+            binds.extend((cu.uid, cu.desc.queue, list(idxs))
+                         for cu, idxs, _ in out)
+            return out
+
+        def logged_charge(name, chips, hbm):
+            charge(name, chips, hbm)
+            charges.append((name, sched.queues.get(name).chips_used))
+
+        sched.schedule_round = logged_round
+        sched.queues.charge = logged_charge
+
+        def fit(name, seed, mesh=None):
+            with lock:
+                started.append(name)
+            # the first wave is held here until the shrink has drained
+            # (a fit takes milliseconds): the drain then always preempts
+            check(gate.wait(ELASTIC_TIMEOUT), "17b: the gate never opened")
+            home = mesh.devices.flat[0]
+            eng = AnalyticsEngine(DeviceGrid([home]), DataPlane())
+            eng.put("pts", data.get(name).array.full(home))
+            with lock:
+                invocations.append(name)
+            res = km.kmeans_fit(eng, "pts", k, iters=ITERS, use_kernel=True,
+                                seed=seed)
+            with lock:
+                finished.append(name)
+            return res
+
+        descs = [ComputeUnitDescription(
+            fn=fit, args=(f"pts{j}", seed), n_chips=1, tag="kmeans",
+            tenant=tenant, queue=tenant, needs_mesh=True,
+            stage_in=(DataRef(f"pts{j}", link_hint=Link.GFS),))
+            for tenant, j, seed in jobs]
+        steps = {}
+
+        def drive():
+            t0 = time.perf_counter()
+            cus = pilot.agent.submit_many(descs[:n_first])
+            wait_for(lambda: len(started) >= ELASTIC_SLOTS, "first wave")
+            first = {uid: idxs for uid, _, idxs in binds}
+            ev = pm.control_plane.move(pilot, reserve, ELASTIC_SHRINK,
+                                       reason="shrink")
+            steps["shrink_ms"] = 1e3 * (time.perf_counter() - t0)
+            check(ev is not None and ev.n_chips == ELASTIC_SHRINK,
+                  f"17b: the shrink moved {ev and ev.n_chips} chips")
+            steps["slots_after_shrink"] = sched.n_slots
+            steps["evicted_bytes"] = ev.evicted_bytes
+            victims = [cu for cu in cus if cu.state is CUState.CANCELED]
+            steps["drained"] = sorted(i for cu in victims
+                                      for i in first[cu.uid])
+            steps["binds_before_shrink"] = len(binds)
+            gate.set()
+            cus += pilot.agent.submit_many(descs[n_first:])
+            clones = [cu.result for cu in victims]
+            wait_for(lambda: {c.uid for c in clones}
+                     <= {uid for uid, _, _ in binds}, "clone bound")
+            granted = pm.control_plane.grow(pilot, ELASTIC_SHRINK,
+                                            reason="grow")
+            steps["grow_ms"] = 1e3 * (time.perf_counter() - t0)
+            steps["granted"] = granted
+            steps["slots_after_grow"] = sched.n_slots
+            steps["binds_before_grow"] = len(binds)
+            results = [cu.follow(ELASTIC_TIMEOUT) for cu in cus]
+            # a preempted CU's own fit runs on to its end, unpublished
+            wait_for(lambda: len(finished) == len(started), "fit to end")
+            torch.cuda.synchronize()
+            steps["wall_ms"] = 1e3 * (time.perf_counter() - t0)
+            return cus, victims, results
+
+        ops.LAUNCHES = ops.MERGE_LAUNCHES = 0      # phase 17b's window
+        prof = _device_profile(torch, lambda: steps.update(
+            run=drive()))
+        launches = (ops.LAUNCHES, ops.MERGE_LAUNCHES)
+        cus, victims, results = steps.pop("run")
+        ledger = data.ledger()
+        staging = pilot.prefetcher.snapshot()
+        requests = [r for cu in cus for r in cu.staging_futures]
+    finally:
+        gate.set()
+        pm.shutdown()
+
+    def final(cu):
+        while cu.state is CUState.CANCELED and isinstance(cu.result,
+                                                          ComputeUnit):
+            cu = cu.result
+        return cu
+
+    finals = [final(cu) for cu in cus]
+    lost = sum(f.state is not CUState.DONE for f in finals)
+    check(lost == 0, f"17b: {lost} CUs did not end DONE")
+    check(len(victims) == ELASTIC_SHRINK and len(steps["drained"])
+          == ELASTIC_SHRINK, f"17b: the shrink requeued {len(victims)} "
+          f"CUs from slots {steps['drained']}")
+    check((steps["slots_after_shrink"], steps["granted"],
+           steps["slots_after_grow"]) == (ELASTIC_SLOTS - ELASTIC_SHRINK,
+                                          ELASTIC_SHRINK, ELASTIC_SLOTS),
+          f"17b: slots {steps['slots_after_shrink']} after the shrink, "
+          f"{steps['granted']} granted, {steps['slots_after_grow']} after "
+          "the grow")
+    survivors = set(range(ELASTIC_SLOTS)) - set(steps["drained"])
+    bound_at = {uid: idxs for uid, _, idxs in binds}
+    for cu in victims:
+        idxs = bound_at[final(cu).uid]
+        check(set(idxs) <= survivors, f"17b: requeued {cu.uid} reran on "
+              f"slots {idxs}, not on the survivors {sorted(survivors)}")
+    late = [idxs for _, _, idxs in binds[steps["binds_before_shrink"]:]
+            if set(idxs) & set(steps["drained"])]
+    grown = sum(1 for _, _, idxs in binds if min(idxs) >= ELASTIC_SLOTS)
+    steps["binds_on_grown_slots"] = grown
+    check(not late, f"17b: drained slots bound again: {late}")
+    for (tenant, j, seed), f, res in zip(jobs, finals, results):
+        cent, cost = res
+        want_cent, want_cost = solo[seed]
+        check(torch.equal(cent, want_cent) and cost == want_cost,
+              f"17b: {tenant}'s CU on pts{j} differs from its solo fit "
+              f"(cost {cost} vs {want_cost})")
+    check(len(invocations) == len(jobs) + len(victims),
+          f"17b: {len(invocations)} fits ran, want {len(jobs)} + "
+          f"{len(victims)} preempted")
+    want = (scan_per_fit * len(invocations), merge_per_fit * len(invocations))
+    check(launches == want, f"17b: K1 launched {launches} (scan, merge) "
+          f"times, want {want}")
+    conflicts = lease_conflicts(pm.rm.lease_events)
+    check(not conflicts, f"17b: lease slots held twice: {conflicts}")
+    over = [(q, used) for q, used in charges if used > ELASTIC_CAP]
+    check(not over and charges, f"17b: queues over their cap of "
+          f"{ELASTIC_CAP} chips at a bind: {over}")
+    check(ledger["by_link"][Link.GFS] == ds_bytes,
+          f"17b: {ledger['by_link'][Link.GFS]} GFS bytes, want each "
+          f"dataset's once: {ds_bytes}")
+    check(staging["transfers"] == len(draws) and all(
+        r.state.value == "done" for r in requests),
+        f"17b: {staging['transfers']} transfers; request states "
+        f"{sorted({r.state.value for r in requests})}")
+    order = [queue for _, queue, _ in binds]
+    out = {"cus": len(jobs), "requeued": len(victims), "lost": lost,
+           "fits": len(invocations), "k1_launches": launches[0],
+           "merge_launches": launches[1], "dataset_bytes": ds_bytes,
+           "bytes_by_link": ledger["by_link"],
+           "bytes_by_reason": ledger["by_reason"],
+           "stage_transfers": staging["transfers"],
+           "stage_hits": staging["cache"]["hits"], "bind_order": order,
+           "max_charged": {q: max(u for n_, u in charges if n_ == q)
+                           for q, _ in ELASTIC_TENANTS},
+           "lease_events": len(pm.rm.lease_events), **steps,
+           "device_busy_ms": prof["device_busy_ms"],
+           "busy_share": prof["busy_share"],
+           "profiled_wall_ms": prof["wall_ms"]}
+    print(f"  {len(jobs)} CUs DONE (0 lost), {len(victims)} requeued from "
+          f"slots {steps['drained']} onto {sorted(survivors)}; centroids "
+          f"and costs bitwise those of solo fits; K1 {launches[0]} scans "
+          f"and {launches[1]} merges for {len(invocations)} fits")
+    print(f"  wall {steps['wall_ms']:.3f} ms (shrink done at "
+          f"{steps['shrink_ms']:.3f} ms, grow at {steps['grow_ms']:.3f}); "
+          f"bytes by link {ledger['by_link']} (GFS = {len(draws)} datasets "
+          f"once, {staging['cache']['hits']} coalesced hits); device busy "
+          f"{prof['device_busy_ms']:.3f} of {prof['wall_ms']:.3f} ms "
+          f"profiled ({_share(prof['busy_share'])}) [{card}]")
+    print(f"  {steps['binds_before_grow']} of {len(binds)} binds before "
+          f"the grow, {grown} on the grown slots")
+    print(f"  bind order by tenant: {' '.join(order)}; most chips charged "
+          f"a queue: {out['max_charged']} (cap {ELASTIC_CAP}); "
+          f"{len(pm.rm.lease_events)} lease events, no slot held twice")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, rows,
                  library: bool) -> dict:
     """One kernel's record: times summed over its timed shapes, bound
@@ -3512,6 +3854,11 @@ def run(torch) -> int:
     shard_s = time.perf_counter() - t_shard
     print(f"  phase 16a: K3 launched {sharded_launches} times; "
           f"{shard_s:.3f} s wall")
+    t_elastic = time.perf_counter()
+    quickstart = phase_quickstart(card)
+    elastic = phase_elastic(torch, dev, km, ops, card)
+    elastic_s = time.perf_counter() - t_elastic
+    print(f"  phase 17: {elastic_s:.3f} s wall")
     t_bytes = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S
     t_ops = sum(s["flops"] for s in shapes) / FP32_FLOP_PER_S
     record = {"kernels": [{
@@ -3531,6 +3878,7 @@ def run(torch) -> int:
         "launches_session": session_launches[0],
         "launches_raptor": raptor["launches"],
         "launches_recovery": recovery["launches"],
+        "launches_elastic": elastic["k1_launches"],
         "ptxas": k1_ptxas, "shapes": shapes,
     }, kernel_entry(
         "kmeans_merge",
@@ -3539,7 +3887,8 @@ def run(torch) -> int:
         merge_rows, library=False) | {
         "launches_session": session_launches[1],
         "launches_raptor": raptor["merge_launches"],
-        "launches_recovery": recovery["merge_launches"]}, kernel_entry(
+        "launches_recovery": recovery["merge_launches"],
+        "launches_elastic": elastic["merge_launches"]}, kernel_entry(
         "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:82",
@@ -3591,7 +3940,9 @@ def run(torch) -> int:
         "ep_combine": ep_combine, "phase_14_s": plan_s,
         "analytic": analytic_rec, "stage_cost": stage_cost,
         "dryrun": dryrun, "save_tp_out": save_tp, "phase_15_s": roof_s,
-        "serve_sharded": serve_sharded, "phase_16_s": shard_s}
+        "serve_sharded": serve_sharded, "phase_16_s": shard_s,
+        "quickstart": quickstart, "elastic": elastic,
+        "phase_17_s": elastic_s}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {
