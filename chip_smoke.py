@@ -147,7 +147,23 @@ Phases (any failure raises and the script exits non-zero):
      requeued ones on surviving slots, with centroids and cost bitwise
      those of the same fit alone; K1's scan and merge counts are exact
      for the fits run; no lease slot is held twice; no queue is charged
-     past its cap; GFS moves each dataset's bytes once.
+     past its cap; GFS moves each dataset's bytes once;
+ 18. head-parallel MLA and cross-attention at one rank (a 1 x 1 mesh:
+     every placement Replicate; their split over "model" is held on gloo
+     ranks by ``tests/test_torch_mla_cross_tp.py``), bf16, random
+     weights: (a) DeepSeek-V2-236B at full width, serving cut to 2 layers
+     (the dense first layer and one MoE layer: 2 x 2048 prompts, 16
+     greedy tokens) and training to 1 (MLA + the dense FFN: one AdamW step
+     of 2 x 2048), and (b) SeamlessM4T-medium uncut, each on the plan
+     path (the serving plan's or the train plan's DTensors) against the
+     plain path: prefill logits and caches, every step's logits and
+     tokens, the step's loss, grad norm and updated state bit for bit,
+     walls and peaks; (c) after them, ``launch/dryrun.py`` of
+     deepseek-v2-236b x ``decode_32k`` and ``prefill_32k`` (cut to 2
+     layers, the whole model's plan) on the fake (16, 16) group, one
+     subprocess a cell, side by side: 0 launches, the record's collective
+     bytes a device (the all-gathers over "model" apart from the rest),
+     traced and analytic peak a device.
 
 Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
 it and reads them after.  Phase 11b sets K3's count to 0 before it and
@@ -161,7 +177,9 @@ around its steps (``launches_save_tp_out``), and phase 16a around its
 prefills and decode steps (``launches_serve_sharded``).
 ``launches_dryrun`` is the 15c subprocess's own count over its trace (0).
 Phase 17b sets K1's counts to 0 just before its CUs are submitted and
-reads them when all are done (``launches_elastic``).
+reads them when all are done (``launches_elastic``).  Phase 18 sets K3's,
+the fused backward's and K3-bwd's counts to 0 before it and checks them
+0 after (its models have no SSM layer; no kernel is on their path).
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -373,6 +391,19 @@ ELASTIC_RESERVE = 2    # ...and of the pilot the shrink hands chips to
 ELASTIC_SHRINK = 2     # slots the ControlPlane drains, then grants back
 ELASTIC_SEED = 170
 ELASTIC_TIMEOUT = 300.0
+# phase 18: head-parallel MLA and cross-attention at full width, one rank
+MLA_ARCH = "deepseek-v2-236b"
+MLA_SERVE_LAYERS = 2   # depth cut: the dense first layer and one MoE layer
+MLA_TRAIN_LAYERS = 1   # depth cut: MLA + the dense FFN (12288)
+CROSS_ARCH = "seamless-m4t-medium"   # width and depth uncut
+HEAD_B, HEAD_S, HEAD_NEW = 2, 2048, 16
+HEAD_SEED = 180
+HEAD_LR = 1e-3
+# 18c: the dry-run of MLA's serving cells, after 18a and 18b, one
+# subprocess a cell, the two side by side; prefill_32k cut to 2 layers (the
+# dense first layer and one MoE layer): its 60 did not trace in 600 s
+DRYRUN_MLA = ("deepseek-v2-236b", (("decode_32k", None), ("prefill_32k", 2)))
+DRYRUN_MLA_TIMEOUT = 600
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3579,6 +3610,309 @@ def phase_elastic(torch, dev, km, ops, card: str) -> dict:
     return out
 
 
+def _timed(torch, fn):
+    """(fn(), wall ms) between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _serve_plan_vs_plain(torch, dev, cfg, label: str) -> dict:
+    """`cfg` (bf16, random weights from HEAD_SEED) served twice from one
+    set of weights: the plain serving steps on plain tensors and the same
+    steps on the serving plan's DTensor params on a 1 x 1 mesh (caches
+    from ``init_caches(mesh=)``): two prefills of HEAD_B x HEAD_S each
+    (the first warms up; an encoder-decoder gets HEAD_S random frames),
+    then HEAD_NEW greedy decode steps, plan and plain alternating.  The
+    logits, caches and tokens must agree bit for bit."""
+    import dataclasses
+    from repro_torch.core import DeviceGrid
+    from repro_torch.launch import spmd
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    from repro_torch.sharding import Plan, parallel
+    from repro_torch.util import tree_leaves
+    B, S, new = HEAD_B, HEAD_S, HEAD_NEW
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(HEAD_SEED)
+    params = tf.init_params(cfg, gen, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    enc = 0
+    if cfg.is_encoder_decoder:
+        enc = S
+        batch["frame_embeds"] = torch.randn((B, S, cfg.d_model),
+                                            generator=gen, device=dev,
+                                            dtype=cfg.param_dtype)
+    mesh = spmd.local_mesh(DeviceGrid([dev], tp=1))
+    plan = dataclasses.replace(Plan.for_mesh(mesh), serving=True)
+    placed = parallel.distribute_tree(params, plan.param_specs(params), mesh)
+    check(all(isinstance(t, parallel.DTensor) for t in tree_leaves(placed)),
+          f"phase {label}: a param is not a DTensor")
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg,
+                                                               sample=True)
+    V = cfg.vocab_size
+    pre = {"plain": [], "plan": []}
+    for _ in range(2):
+        (caches, logits), ms = _timed(torch, lambda: prefill(params, batch))
+        pre["plain"].append(ms)
+        (qcaches, qlogits), ms = _timed(torch, lambda: prefill(placed, batch))
+        pre["plan"].append(ms)
+    check(bool(torch.isfinite(logits[..., :V]).all()),
+          f"phase {label}: non-finite prefill logits")
+    bitwise = {"prefill_logits": torch.equal(qlogits.full_tensor(), logits),
+               "prefill_caches": all(
+                   torch.equal(qc[k].full_tensor(), c[k])
+                   for qc, c in zip(qcaches, caches) for k in c)}
+    dec = tf.grow_caches(caches, tf.init_caches(cfg, B, S + new, enc,
+                                                device=dev))
+    qdec = tf.grow_caches(qcaches, tf.init_caches(cfg, B, S + new, enc,
+                                                  device=dev, mesh=mesh))
+    del caches, qcaches
+    tok = logits[:, -1, :V].argmax(-1).to(torch.int32)[:, None]
+    qtok, toks = tok, [tok]
+    step = {"plain": [], "plan": []}
+    same = True
+    for t in range(new):
+        pos = torch.full((B,), S + t, dtype=torch.int32, device=dev)
+        (qdec, qlg, qtok), ms = _timed(torch, lambda: decode(placed, qdec,
+                                                             qtok, pos))
+        step["plan"].append(ms)
+        (dec, lg, tok), ms = _timed(torch, lambda: decode(params, dec, tok,
+                                                          pos))
+        step["plain"].append(ms)
+        qtok = qtok.full_tensor()
+        same &= torch.equal(qlg.full_tensor(), lg)
+        check(bool(torch.isfinite(lg[..., :V]).all()),
+              f"phase {label} step {t}: non-finite logits")
+        check(torch.equal(qtok, tok), f"phase {label} step {t}: plan and "
+              f"plain tokens differ: {qtok[:, 0]} vs {tok[:, 0]}")
+        toks.append(tok)
+    bitwise["decode_logits"] = same
+    bitwise["decode_caches"] = all(torch.equal(qc[k].full_tensor(), c[k])
+                                   for qc, c in zip(qdec, dec) for k in c)
+    tokens = torch.cat(toks, dim=1)
+    check(bool(((tokens >= 0) & (tokens < V)).all()),
+          f"phase {label}: a token outside the vocabulary")
+    check(all(bitwise.values()), f"phase {label}: the plan path differs "
+          f"from the plain path: {bitwise}")
+    rec = {"layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers,
+           "params": n_params, "B": B, "S": S, "new_tokens": new,
+           "prefill_ms_plain": pre["plain"][-1],
+           "prefill_ms_plan": pre["plan"][-1], "prefill_ms_all": pre,
+           "decode_ms_per_token_plain": statistics.median(step["plain"]),
+           "decode_ms_per_token_plan": statistics.median(step["plan"]),
+           "decode_ms_all": step, "bitwise": bitwise,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "tokens_row0": tokens[0, :12].tolist()}
+    del params, placed, dec, qdec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _train_plan_vs_plain(torch, dev, cfg, label: str) -> dict:
+    """One AdamW step of `cfg` (bf16 params, f32 moments, random weights
+    from HEAD_SEED, remat) on HEAD_B x HEAD_S tokens of the token
+    pipeline: the plain ``make_train_step`` on plain tensors, then the
+    plan path (the state as DTensors placed by ``Plan`` on a 1 x 1 mesh,
+    the plan's act_spec), from the same initial state: loss, grad norm
+    and the updated params and moments bit for bit."""
+    from repro_torch.core import DeviceGrid
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import spmd
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import Plan, parallel
+    from repro_torch.train.step import make_train_state, make_train_step
+    from repro_torch.util import tree_leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = TokenPipeline(cfg, batch=HEAD_B, seq=HEAD_S, seed=HEAD_SEED,
+                          device=dev).batch_at(0)
+
+    def fresh():
+        gen = torch.Generator(device=dev).manual_seed(HEAD_SEED)
+        return make_train_state(cfg, tf.init_params(cfg, gen, device=dev))
+
+    hyper = adamw.Hyper(lr=HEAD_LR)
+    state = fresh()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    plain_step = make_train_step(cfg, hyper=hyper)
+    (state, metrics), plain_ms = _timed(torch, lambda: plain_step(state,
+                                                                  batch))
+    plain = {k: float(v) for k, v in metrics.items()}
+    plain_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    mesh = spmd.local_mesh(DeviceGrid([dev], tp=1))
+    plan = Plan.for_mesh(mesh)
+    placed = fresh()
+    placed = parallel.distribute_tree(placed, plan.param_specs(placed), mesh)
+    step = make_train_step(cfg, hyper=hyper, act_spec=plan.act_spec(),
+                           moe_groups=plan.dp_size)
+    (placed, metrics), plan_ms = _timed(torch, lambda: step(placed, batch))
+    got = {k: float(v) for k, v in metrics.items()}
+    check(math.isfinite(plain["loss"]) and math.isfinite(plain["grad_norm"]),
+          f"phase {label}: non-finite loss or grad norm {plain}")
+    leaves = [(a, b) for part in ("params", "opt") for a, b in zip(
+        tree_leaves(placed[part]), tree_leaves(state[part]))]
+    bitwise = {"loss": got["loss"] == plain["loss"],
+               "grad_norm": got["grad_norm"] == plain["grad_norm"],
+               "state": all(torch.equal(parallel.local(a), b)
+                            for a, b in leaves)}
+    check(all(bitwise.values()), f"phase {label}: the plan path's step "
+          f"differs from the plain step: {bitwise}; {got} vs {plain}")
+    rec = {"layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers,
+           "params": n_params, "B": HEAD_B, "S": HEAD_S,
+           "loss": plain["loss"], "grad_norm": plain["grad_norm"],
+           "step_ms_plain": plain_ms, "step_ms_plan": plan_ms,
+           "peak_memory_gb_plain": plain_peak,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "bitwise": bitwise}
+    del state, placed
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_head_parallel(torch, dev, card: str) -> dict:
+    """18a and 18b: the models whose heads are MLA's and cross-attention's,
+    at full width in bf16, on the plan path at one rank (a 1 x 1 mesh:
+    every placement Replicate, no collective; the split over "model" is
+    held on gloo ranks and in the dry-run) against the plain path, bit for
+    bit.  18a DeepSeek-V2-236B, serving cut to MLA_SERVE_LAYERS layers and
+    training to MLA_TRAIN_LAYERS; 18b SeamlessM4T-medium uncut."""
+    import dataclasses
+    from repro_torch import configs
+    full = configs.get(MLA_ARCH)
+    serve_cfg = dataclasses.replace(full, n_layers=MLA_SERVE_LAYERS)
+    train_cfg = dataclasses.replace(full, n_layers=MLA_TRAIN_LAYERS,
+                                    family="dense", d_ff=full.dense_d_ff,
+                                    moe_first_k_dense=0)
+    cuts = {"serve": f"depth {MLA_SERVE_LAYERS} of {full.n_layers}: the "
+                     "dense first layer and one MoE layer",
+            "train": f"depth {MLA_TRAIN_LAYERS} of {full.n_layers}: MLA + "
+                     f"the dense FFN ({full.dense_d_ff}); an MoE layer's "
+                     "f32 moments would not leave room"}
+    cross = configs.get(CROSS_ARCH)
+    out = {}
+    for key, arch, cfg, cut in (("18a", MLA_ARCH, serve_cfg, cuts["serve"]),
+                                ("18b", CROSS_ARCH, cross, "uncut")):
+        print(f"phase {key}: {arch} ({cfg.dtype}, {cut}) serving, plan path "
+              f"at one rank against the plain path, {HEAD_B} x {HEAD_S} "
+              f"prompts, {HEAD_NEW} greedy tokens")
+        rec = _serve_plan_vs_plain(torch, dev, cfg, f"{key} {arch}")
+        print(f"  {key} {arch} serving ({rec['params']} params): prefill "
+              f"plan / plain {rec['prefill_ms_plan']:.3f} / "
+              f"{rec['prefill_ms_plain']:.3f} ms (second of 2); decode "
+              f"{rec['decode_ms_per_token_plan']:.3f} / "
+              f"{rec['decode_ms_per_token_plain']:.3f} ms a step of {HEAD_B} "
+              f"tokens (medians of {HEAD_NEW}, alternating); peak "
+              f"{rec['peak_memory_gb']:.4f} GB; bit for bit "
+              f"{rec['bitwise']}; tokens row 0 {rec['tokens_row0']} [{card}]")
+        out[f"{key}_serve"] = rec | {"arch": arch, "cut": cut}
+    for key, arch, cfg, cut in (("18a", MLA_ARCH, train_cfg, cuts["train"]),
+                                ("18b", CROSS_ARCH, cross, "uncut")):
+        print(f"phase {key}: {arch} ({cut}) one train step of {HEAD_B} x "
+              f"{HEAD_S}, plan path at one rank against the plain step")
+        rec = _train_plan_vs_plain(torch, dev, cfg, f"{key} {arch} train")
+        print(f"  {key} {arch} train ({rec['params']} params): loss "
+              f"{rec['loss']:.6f}, grad norm {rec['grad_norm']:.6f}; step "
+              f"plan / plain {rec['step_ms_plan']:.3f} / "
+              f"{rec['step_ms_plain']:.3f} ms (one step each, the first "
+              f"call); peak {rec['peak_memory_gb']:.4f} GB (plain step "
+              f"alone {rec['peak_memory_gb_plain']:.4f}); bit for bit "
+              f"{rec['bitwise']} [{card}]")
+        out[f"{key}_train"] = rec | {"arch": arch, "cut": cut}
+    return out
+
+
+def phase_dryrun_mla(card: str) -> dict:
+    """18c. ``python -m repro_torch.launch.dryrun --device cuda`` on
+    DRYRUN_MLA's serving cells of DeepSeek-V2-236B, one subprocess a cell,
+    both started together: the fake (16, 16) group (fake cuda tensors, no
+    launch; a depth cut keeps the whole model's plan), MLA's heads and
+    latent columns split over "model".  For each cell the trace time, the
+    record's collective bytes a device (every collective runs over one
+    mesh axis: ``collectives_by_axis`` adds up to ``collectives``; the
+    all-gathers over "model" apart from the rest), the traced and analytic
+    peak a device."""
+    arch, cells = DRYRUN_MLA
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = []
+        try:
+            for shape, layers in cells:
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--mesh", "single",
+                       "--device", "cuda", "--out", out_dir]
+                if layers:
+                    cmd += ["--layers", str(layers)]
+                log = open(os.path.join(out_dir, f"{shape}.log"), "w+")
+                procs.append((shape, log, subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=log,
+                    stderr=subprocess.STDOUT)))
+            for shape, log, proc in procs:
+                try:
+                    rc = proc.wait(timeout=max(1.0, DRYRUN_MLA_TIMEOUT - (
+                        time.perf_counter() - t0)))
+                except subprocess.TimeoutExpired:
+                    rc = None
+                log.seek(0)
+                check(rc == 0, f"phase 18c {arch} x {shape}: "
+                      + ("exit %s" % rc if rc is not None else
+                         f"over {DRYRUN_MLA_TIMEOUT} s")
+                      + f"; {log.read()[-3000:]}")
+        finally:
+            for _, log, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        recs = []
+        for shape, _ in cells:
+            with open(os.path.join(out_dir,
+                                   f"{arch}__{shape}__single.json")) as f:
+                recs.append(json.load(f))
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall}
+    for rec in recs:
+        shape, colls = rec["shape"], rec["collectives"]
+        check(not any(rec["kernel_launches"].values()),
+              f"phase 18c {arch} x {shape}: kernels launched "
+              f"{rec['kernel_launches']}")
+        by_axis = rec["collectives_by_axis"]
+        for kind, total in colls.items():
+            split = sum(row[kind] for row in by_axis.values())
+            check(math.isclose(split, total, rel_tol=1e-9),
+                  f"phase 18c {arch} x {shape}: {kind} over the axes "
+                  f"{split} B, in all {total} B")
+        ag = by_axis["model"]["all-gather"]
+        check(ag > 0, f"phase 18c {arch} x {shape}: no all-gather over "
+              "model")
+        rec["all_gather_model"], rec["rest"] = ag, colls["total"] - ag
+        print(f"  18c {arch} x {shape} ({rec['n_layers']} of "
+              f"{rec['of_layers']} layers) on a fake (16, 16) group, fake "
+              f"cuda tensors: trace {rec['trace_s']:.3f} s; collectives "
+              f"{colls['total']:.6e} B a device: all-gather over \"model\" "
+              f"{ag:.6e}, the rest {rec['rest']:.6e}; traced peak "
+              f"{rec['memory']['peak_bytes_per_device'] / 1e9:.4f} GB a "
+              f"device, analytic "
+              f"{rec['analytic_peak_bytes_per_device'] / 1e9:.4f} GB; "
+              f"kernel launches {rec['kernel_launches']} [{card}]")
+        for axis, row in sorted(by_axis.items()):
+            print(f"    over {axis!r}: " + ", ".join(
+                f"{k} {v:.6e}" for k, v in row.items() if v and k != "total"))
+        out[shape] = {k: rec[k] for k in (
+            "n_layers", "of_layers", "trace_s", "collectives",
+            "collectives_by_axis", "all_gather_model", "rest", "memory",
+            "analytic_peak_bytes_per_device", "kernel_launches")}
+    print(f"  18c subprocesses: {wall:.3f} s (after 18a and 18b)")
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, err, rows,
                  library: bool) -> dict:
     """One kernel's record: times summed over its timed shapes, bound
@@ -3859,6 +4193,18 @@ def run(torch) -> int:
     elastic = phase_elastic(torch, dev, km, ops, card)
     elastic_s = time.perf_counter() - t_elastic
     print(f"  phase 17: {elastic_s:.3f} s wall")
+    t_head = time.perf_counter()
+    ms_ops.LAUNCHES = ms_ops.SSM_BWD_LAUNCHES = ms_ops.BWD_LAUNCHES = 0
+    head_parallel = phase_head_parallel(torch, dev, card)
+    head_launches = (ms_ops.LAUNCHES, ms_ops.SSM_BWD_LAUNCHES,
+                     ms_ops.BWD_LAUNCHES)
+    check(head_launches == (0, 0, 0), f"phase 18 (no SSM layer) "
+          f"launched K3, the fused backward and K3-bwd {head_launches} "
+          "times")
+    print(f"phase 18c: the dry-run of {DRYRUN_MLA}")
+    dryrun_mla = phase_dryrun_mla(card)
+    head_s = time.perf_counter() - t_head
+    print(f"  phase 18: {head_s:.3f} s wall")
     t_bytes = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S
     t_ops = sum(s["flops"] for s in shapes) / FP32_FLOP_PER_S
     record = {"kernels": [{
@@ -3942,7 +4288,8 @@ def run(torch) -> int:
         "dryrun": dryrun, "save_tp_out": save_tp, "phase_15_s": roof_s,
         "serve_sharded": serve_sharded, "phase_16_s": shard_s,
         "quickstart": quickstart, "elastic": elastic,
-        "phase_17_s": elastic_s}
+        "phase_17_s": elastic_s, "head_parallel": head_parallel,
+        "dryrun_mla": dryrun_mla, "phase_18_s": head_s}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

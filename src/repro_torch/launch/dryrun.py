@@ -41,7 +41,9 @@ port's:
     (matmuls, attention and the scan's registered formula; no
     elementwise op), ``bytes_per_device`` None (nothing counts it).
   * ``collectives``: per-device payload bytes of every collective the
-    step issued, with the reference's conventions.
+    step issued, with the reference's conventions;
+    ``collectives_by_axis`` the same split by the mesh axis whose group
+    the collective ran over (the port's key).
   * ``analytic``, ``params_bytes_per_device``, ``state_bytes_per_device``,
     ``analytic_peak_bytes_per_device``, ``n_microbatches``,
     ``fits_hbm_analytic``, ``terms``: the reference's arithmetic, the
@@ -144,13 +146,16 @@ class Cell:
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
                overrides: Optional[Dict[str, Any]] = None, *,
-               arch: Optional[str] = None) -> Cell:
+               arch: Optional[str] = None,
+               plan_cfg: Optional[ModelConfig] = None) -> Cell:
     """The reference's ``build_cell`` without the lowering: the cell's
     plan, its step options and its per-device size extras
     (``params_bytes_per_device``; ``state_bytes_per_device``,
     ``analytic_peak_bytes_per_device`` and ``n_microbatches`` for train;
     the cache bytes for serving), from shapes alone.  `arch` names the
-    override entry (default ``cfg.name``)."""
+    override entry (default ``cfg.name``); `plan_cfg` is the model whose
+    size decides the serving plan (default `cfg`; the whole model when
+    `cfg` is a depth cut of it, so the cut keeps its plan)."""
     overrides = {**TRAIN_MEMORY_OVERRIDES.get(arch or cfg.name, {}),
                  **(overrides or {})}
     params = _abstract_params(cfg)
@@ -158,7 +163,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, plan: Plan,
     if shape.kind in ("prefill", "decode"):
         # weight-stationary serving: TP-sharded leaves drop FSDP when the
         # TP shard fits HBM
-        tp_shard_bytes = cfg.n_params() * 2 / axes[plan.tp_axis]
+        tp_shard_bytes = (plan_cfg or cfg).n_params() * 2 \
+            / axes[plan.tp_axis]
         if tp_shard_bytes < 10e9 and not overrides.get("keep_fsdp_serving"):
             plan = dataclasses.replace(plan, serving=True)
     pspec = plan.param_specs(params)
@@ -305,6 +311,7 @@ def _trace(cfg: ModelConfig, shape: ShapeConfig, cell: Cell, mesh,
         mem.track_external(*args)
         argument_bytes = sum(t.numel() * t.element_size() for t in args)
         flops, colls = FlopCounterMode(display=False), CollectiveCounter()
+        axes = {a: mesh.get_group(a).group_name for a in mesh.mesh_dim_names}
         t0 = time.perf_counter()
         with mem, flops, colls:
             if cell.kind == "train":
@@ -323,7 +330,10 @@ def _trace(cfg: ModelConfig, shape: ShapeConfig, cell: Cell, mesh,
             "cost_analysis": {"flops_per_device":
                               float(flops.get_total_flops()),
                               "bytes_per_device": None},
-            "collectives": colls.bytes(), "trace_s": trace_s}
+            "collectives": colls.bytes(),
+            "collectives_by_axis": {a: colls.bytes([name])
+                                    for a, name in axes.items()},
+            "trace_s": trace_s}
 
 
 def _serve(cfg, cell: Cell, params, batch, caches) -> None:
@@ -351,14 +361,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
              verbose: bool = True, *, device: str = "cpu",
              cfg: Optional[ModelConfig] = None,
              mesh_axes: Optional[Dict[str, int]] = None,
-             shape: Optional[ShapeConfig] = None) -> Dict[str, Any]:
+             shape: Optional[ShapeConfig] = None,
+             layers: Optional[int] = None) -> Dict[str, Any]:
     """Trace one (arch x shape x mesh) cell on a fake group; derive the
     roofline terms.  `cfg` replaces ``configs.get(arch)`` (a reduced
     config, say; the overrides are still `arch`'s), `mesh_axes` the
     production mesh (axis name -> size) and `shape` ``SHAPES[shape_name]``.
-    ``kernel_launches`` records the kernels' launch counts over the trace
-    (0: the fake-tensor shape rules launch nothing)."""
-    cfg = cfg or configs.get(arch)
+    `layers` cuts the depth to that many decoder layers and keeps the
+    plan the whole model gets (``n_layers`` / ``of_layers`` record it; the
+    analytic terms are the cut model's).  ``kernel_launches`` records the
+    kernels' launch counts over the trace (0: the fake-tensor shape rules
+    launch nothing)."""
+    whole = cfg or configs.get(arch)
+    cfg = whole if layers is None else dataclasses.replace(
+        whole, n_layers=layers)
     shape = shape or SHAPES[shape_name]
     axes = mesh_axes or make_production_mesh(multi_pod=multi_pod)
     mesh_name = ("pod2x16x16" if multi_pod else "pod16x16") \
@@ -370,11 +386,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     if not ok:
         rec.update({"applicable": False, "skip_reason": why})
         return rec
-    rec["applicable"] = True
+    rec.update({"applicable": True, "n_layers": cfg.n_layers,
+                "of_layers": whole.n_layers})
     before = _launches()
     with fake_world(axes, torch.device(device).type) as mesh:
         cell = build_cell(cfg, shape, Plan.for_mesh(mesh), overrides,
-                          arch=arch)
+                          arch=arch, plan_cfg=whole)
         rec.update(_trace(cfg, shape, cell, mesh, torch.device(device)))
     rec["kernel_launches"] = {k: n - before[k]
                               for k, n in _launches().items()}
@@ -420,6 +437,9 @@ def main(argv=None):
     ap.add_argument("--out", default="out/dryrun")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="device of the fake tensors")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut every cell's depth to this many decoder "
+                         "layers, keeping the whole model's plan")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else configs.names()
@@ -435,7 +455,7 @@ def main(argv=None):
                 tag = f"{arch}__{shape_name}__{'multi' if multi else 'single'}"
                 try:
                     rec = run_cell(arch, shape_name, multi,
-                                   device=args.device)
+                                   device=args.device, layers=args.layers)
                 except Exception as e:  # a failure here is a bug in the system
                     rec = {"arch": arch, "shape": shape_name,
                            "mesh": "pod2x16x16" if multi else "pod16x16",

@@ -22,7 +22,9 @@ every head, flash-decode style: the softmax and the weighted values
 are combined over the group, ``parallel.split_softmax``, and a new
 key lands on the one rank that owns its slot) or None (whole).  The
 masks keep global slot indices, so ring buffers, ``window``, ``start``
-and cross-attention read the same slots as on one device.
+and cross-attention read the same slots as on one device.  MLA splits
+its heads the same way; its latent cache has no heads, so it is split
+on the sequence or whole (:func:`mla_decode`).
 """
 from __future__ import annotations
 
@@ -186,8 +188,10 @@ def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     them, else whole (the plan leaves them unsharded), and the rank takes
     the kv head of each of its query heads (with `whole_kv` it projects
     every kv head and the cache holds them all: a sharded prefill then
-    splits that cache on the sequence).  One all-reduce sums the heads'
-    outputs.
+    splits that cache on the sequence).  A `kv_override` was projected
+    with those ``wk``/``wv``: the rank's kv heads, or every kv head, of
+    which it takes its query heads' as `whole_kv` does.  One all-reduce
+    sums the heads' outputs.
     """
     h = cfg.n_heads
     wk, wv = p["wk"], p["wv"]
@@ -211,7 +215,7 @@ def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     else:
         k, v = kv_override
     cache = {"k": k, "v": v}
-    if whole_kv and idx is not None:
+    if idx is not None and (whole_kv or kv_override is not None):
         k, v = k.index_select(2, idx), v.index_select(2, idx)
     kf, vf = _repeat_kv(k, h), _repeat_kv(v, h)
     k_pos = positions if kv_override is None else torch.arange(
@@ -252,22 +256,16 @@ def gqa_decode(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     Sharded (see the module docstring): `tp` is the heads' group (``wq``
     and ``wo`` are the rank's heads; ``wk``/``wv`` its kv heads on a
     "heads" cache, else whole), `model` the model group and `layout` the
-    cache's split over it.  On a "heads" cache with replicated heads
-    (cross-attention) the rank runs its kv heads' query heads from the
-    whole weights.  Otherwise a rank with `tp` gathers every head's query
-    over it (a few hundred bytes a row), attends with all heads to its
-    slots, and keeps its heads' outputs.  The heads' outputs are summed
-    over the group that split them.
+    cache's split over it.  On a "heads" cache the rank attends with its
+    heads to its kv heads' history.  Otherwise a rank with `tp` gathers
+    every head's query over it (a few hundred bytes a row), attends with
+    all heads to its slots, and keeps its heads' outputs (on a "seq"
+    cache one reduce-scatter on the heads, :func:`_own_heads`).  The
+    heads' outputs are summed over `tp`.
     """
     B = x.shape[0]
     hd = cfg.head_dim_
     wq, wo = p["wq"], p["wo"]
-    out_group = tp
-    if layout == "heads" and tp is None:
-        n = cfg.n_heads // model.size
-        wq, wo = wq[:, model.rank * n:(model.rank + 1) * n], \
-            wo[model.rank * n:(model.rank + 1) * n]
-        out_group = model
     seq = model if layout == "seq" else None
     Sc = cache["k"].shape[1]                 # this rank's slots
     offset = 0 if seq is None else seq.rank * Sc
@@ -323,18 +321,25 @@ def gqa_decode(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
         # whose f32 sum order on the CPU follows where the real slots sit
         out = torch.einsum("bkgs,bskd->bkgd", w.double(),
                            cache["v"].double())
-        if seq is not None:
-            out = seq.reduce_out(out)
-        out = out.to(cache["v"].dtype)
     else:
         out = torch.einsum("bkgs,bskd->bkgd", w, cache["v"])
-        if seq is not None:
-            out = seq.reduce_out(out)
-    out = out.reshape(B, 1, h, hd)
-    if mine is not None:
-        out = out[:, :, mine]
-    out = torch.einsum("bshk,hkd->bsd", out, wo)
-    return (out if out_group is None else out_group.reduce_out(out)), cache
+    out = _own_heads(out.reshape(B, 1, h, hd), seq, mine)
+    out = torch.einsum("bshk,hkd->bsd", out.to(cache["v"].dtype), wo)
+    return (out if tp is None else tp.reduce_out(out)), cache
+
+
+def _own_heads(out: torch.Tensor, seq, mine: Optional[slice]
+               ) -> torch.Tensor:
+    """A decode step's per-head outputs (B, 1, h, ...) as this rank
+    keeps them: summed over the cache's sequence group `seq` where it has
+    one, and cut to the rank's heads `mine` where every head attended.
+    Both at once are one reduce-scatter on the heads (decode runs
+    outside autograd), moving 1/size of the all-reduce's sum."""
+    if seq is not None and mine is not None:
+        return parallel._scatter_dim(out, seq, 2)
+    if seq is not None:
+        out = seq.reduce_out(out)
+    return out if mine is None else out[:, :, mine]
 
 
 # =================================================================== MLA
@@ -355,9 +360,22 @@ def init_mla(cfg, gen: torch.Generator, lead: Tuple = ()) -> Params:
     }
 
 
-def _mla_q(cfg, p, x, positions):
+def _down(p, key: str, x: torch.Tensor, width: int, tp) -> torch.Tensor:
+    """``x @ p[key]``, a latent of `width` columns.  With `tp` the weight
+    may be this rank's block of columns (the plan splits it over the
+    model axis): the blocks of the latent are then gathered over `tp`,
+    an activation of B x S x width, where gathering the weight would
+    move d x width."""
+    lat = x @ p[key]
+    if tp is not None and lat.shape[-1] != width:
+        lat = tp.all_gather(lat, -1)
+    return lat
+
+
+def _mla_q(cfg, p, x, positions, tp=None):
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
-    q_lat = rmsnorm({"scale": p["q_norm"]}, x @ p["w_dq"])
+    q_lat = rmsnorm({"scale": p["q_norm"]},
+                    _down(p, "w_dq", x, cfg.q_lora_rank, tp))
     q = torch.einsum("bsr,rhk->bshk", q_lat, p["w_uq"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     cos, sin = rope_angles(positions, rope, cfg.rope_theta)
@@ -365,9 +383,9 @@ def _mla_q(cfg, p, x, positions):
     return q_nope, q_rope
 
 
-def _mla_latent(cfg, p, x, positions):
+def _mla_latent(cfg, p, x, positions, tp=None):
     kvr = cfg.kv_lora_rank
-    lat = x @ p["w_dkv"]
+    lat = _down(p, "w_dkv", x, kvr + cfg.qk_rope_dim, tp)
     ckv = rmsnorm({"scale": p["kv_norm"]}, lat[..., :kvr])
     k_rope = lat[..., kvr:][:, :, None, :]  # single shared rope head
     cos, sin = rope_angles(positions, cfg.qk_rope_dim, cfg.rope_theta)
@@ -376,16 +394,30 @@ def _mla_latent(cfg, p, x, positions):
 
 
 def mla_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
-                k_valid: Optional[torch.Tensor] = None,
+                k_valid: Optional[torch.Tensor] = None, tp=None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Train/prefill MLA with naive (expanded) K/V; latent cache returned."""
-    B, S, _ = x.shape
+    """Train/prefill MLA with naive (expanded) K/V; latent cache returned.
+
+    With `tp` (a model-axis group) ``w_uq``, ``w_uk``, ``w_uv`` and
+    ``wo`` are this rank's heads, and ``w_dq``/``w_dkv`` its blocks of
+    the latents' columns where the plan splits them (else whole): the
+    rank computes its columns of each latent and gathers the latent
+    activation over `tp` (:func:`_down`; in training too, one path: the
+    gather's gradient is reduce-scattered back to the columns), then
+    normalizes it whole and expands its heads' keys and values from it,
+    the shared rope key broadcast to them.  The latent cache is whole on
+    every rank.  One all-reduce sums the heads' outputs.
+    """
+    h = cfg.n_heads
+    if tp is not None:
+        x = tp.copy_in(x)
+        h //= tp.size
+    B, S, _ = x.shape   # after copy_in: the whole sequence
     vh = cfg.v_head_dim
-    q_nope, q_rope = _mla_q(cfg, p, x, positions)
-    ckv, k_rope = _mla_latent(cfg, p, x, positions)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions, tp)
+    ckv, k_rope = _mla_latent(cfg, p, x, positions, tp)
     k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
     v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
-    h = cfg.n_heads
     k_rope_b = k_rope[:, :, None, :].expand(B, S, h, cfg.qk_rope_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_b], dim=-1)
@@ -398,29 +430,41 @@ def mla_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
         out = sdpa(q, k, v, positions, positions, causal=True,
                    k_valid=k_valid)
     cache = {"ckv": ckv, "k_rope": k_rope}
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return (out if tp is None else tp.reduce_out(out)), cache
 
 
 def mla_decode(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                pos: torch.Tensor, start: Optional[torch.Tensor] = None,
-               seq=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               tp=None, model=None, layout: Optional[str] = None,
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weight-absorbed MLA decode: attention runs in the latent space.
 
     score(t) = q_nope^T W_uk ckv_t + q_rope . k_rope_t
     out      = (sum_t w_t ckv_t) W_uv
 
     start (B,): first real cache slot per row (see gqa_decode).  The new
-    latent is written into the cache's buffers in place.  With `seq` (a
-    group the latent cache's slots are split over; the heads run whole
-    on every rank) the softmax and ``sum_t w_t ckv_t`` are combined over
-    it.
+    latent is written into the cache's buffers in place.
+
+    Sharded: `tp` is the heads' group (the rank's heads and latent
+    columns, as in :func:`mla_forward`), `model` the model group and
+    `layout` the latent cache's split over it ("seq" or None: the latent
+    has no heads to split).  On a "seq" cache a rank with `tp` gathers
+    every head's absorbed query over it (h x (kv_lora + rope) a row),
+    attends with all heads to its slots (``parallel.split_softmax``),
+    and reduce-scatters ``sum_t w_t ckv_t`` over `model` on the heads,
+    so each rank receives its heads' sums;
+    without `tp` the heads run whole on every rank.  On a whole cache
+    the rank attends with its heads alone.  The heads' outputs are
+    summed over `tp`.
     """
+    seq = model if layout == "seq" else None
     Sc = cache["ckv"].shape[1]
     offset = 0 if seq is None else seq.rank * Sc
     n_slots = Sc if seq is None else Sc * seq.size
     rpos = pos if start is None else pos - start
-    q_nope, q_rope = _mla_q(cfg, p, x, rpos[:, None])
-    ckv_new, k_rope_new = _mla_latent(cfg, p, x, rpos[:, None])
+    q_nope, q_rope = _mla_q(cfg, p, x, rpos[:, None], tp)
+    ckv_new, k_rope_new = _mla_latent(cfg, p, x, rpos[:, None], tp)
     slot = (pos % n_slots).long()
     if seq is None:
         cache = {"ckv": _write_slot(cache["ckv"], ckv_new, slot),
@@ -432,6 +476,12 @@ def mla_decode(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                                                 slot, offset)}
     # absorb: q_lat (B,1,h,kvr)
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+    mine = None
+    if tp is not None and seq is not None:
+        h, kvr = q_lat.shape[2], q_lat.shape[3]
+        mine = slice(tp.rank * h, (tp.rank + 1) * h)
+        q = tp.all_gather(torch.cat([q_lat, q_rope], dim=-1), 2)
+        q_lat, q_rope = q[..., :kvr], q[..., kvr:]
     logits = torch.einsum("bshr,btr->bhst", q_lat, cache["ckv"]).float()
     logits = logits + torch.einsum("bshk,btk->bhst", q_rope,
                                    cache["k_rope"]).float()
@@ -444,7 +494,7 @@ def mla_decode(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     w = _softmax(logits, seq)
     o_lat = torch.einsum("bhst,btr->bshr", w.to(cache["ckv"].dtype),
                          cache["ckv"])
-    if seq is not None:
-        o_lat = seq.reduce_out(o_lat)
+    o_lat = _own_heads(o_lat, seq, mine)
     out = torch.einsum("bshr,rhk->bshk", o_lat, p["w_uv"])
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return (out if tp is None else tp.reduce_out(out)), cache

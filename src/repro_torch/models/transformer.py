@@ -33,28 +33,30 @@ Sharded training: when the params are DTensors (placed by
 ``sharding.Plan``), ``loss_fn`` and ``forward`` run the sharded step of
 :mod:`repro_torch.sharding.parallel`: each rank its batch shard (split
 over ``act_spec``'s batch axes), each layer's params gathered over the
-FSDP axis inside the layer (inside its remat), attention heads, MLP
-width, SSM channels and the vocab split over "model" where they divide,
-the experts too with ``moe_ep_axis``.  The vocab-sharded CE takes the
-log-sum-exp over the shards with a max and a sum all-reduce; the logits
-are never gathered.  With ``act_spec=Plan.act_spec(sp=True)`` the step
-is sequence-parallel (Megatron-style): between sublayers each rank holds
-its chunk of the sequence, and runs the norms on it; a tensor-parallel
-sublayer gathers the sequence on entry and reduce-scatters its output
+FSDP axis inside the layer (inside its remat), attention heads (GQA,
+MLA and cross-attention), MLP width, SSM channels and the vocab split
+over "model" where they divide, the experts too with ``moe_ep_axis``
+(MLA gathers its latents over "model" as activations, never its
+down-projections).  The vocab-sharded CE takes the log-sum-exp over the
+shards with a max and a sum all-reduce; the logits are never gathered.
+With ``act_spec=Plan.act_spec(sp=True)`` the step is sequence-parallel
+(Megatron-style): between sublayers each rank holds its chunk of the
+sequence, and runs the norms on it; a tensor-parallel sublayer gathers
+the sequence on entry and reduce-scatters its output
 (``parallel.SeqGroup``), any other sublayer (the MoE router and experts
 included) runs on the gathered sequence and keeps its chunk.
 
 Sharded serving: with DTensor params (placed by ``Plan(serving=True)``,
 the weight-stationary plan: a TP-sharded weight stays on its model rank)
 ``prefill`` and ``decode_step`` run the same per-layer local step: each
-rank its batch rows, the heads, MLP width, ``d_inner``, vocab and (with
-``moe_ep_axis``) experts of its model rank, no weight gathered over
-"model" that the plan splits (MLA and cross-attention heads run
-replicated, as in training).  The caches are DTensors in
-``Plan.cache_specs``'s layout (``init_caches(mesh=)``; a prefill places
-its own without a gather), the logits in ``Plan.logits_spec``'s (rows
-over the dp axes, vocab over "model"); see ``sharding.parallel`` for the
-split-sequence attention.  Plain tensors take the one-device path.
+rank its batch rows, the heads (MLA's and cross-attention's too), MLP
+width, ``d_inner``, vocab and (with ``moe_ep_axis``) experts of its
+model rank, no weight gathered over "model" that the plan splits.  The
+caches are DTensors in ``Plan.cache_specs``'s layout
+(``init_caches(mesh=)``; a prefill places its own without a gather), the
+logits in ``Plan.logits_spec``'s (rows over the dp axes, vocab over
+"model"); see ``sharding.parallel`` for the split-sequence attention.
+Plain tensors take the one-device path.
 
 Remat policies (``REMAT_POLICIES``, ``loss_fn(remat_policy=...)``): the
 reference's ``save_tp_out`` becomes selective activation checkpointing
@@ -178,7 +180,8 @@ def _block_groups(cfg, seg: Segment, ctx, moe_ep_axis) -> Dict[str, Any]:
     if ctx is None:
         return {}
     groups = {"seq": ctx.seq,
-              "attn": ctx.tp_for(cfg.n_heads) if seg.attn == "gqa" else None,
+              "attn": ctx.tp_for(cfg.n_heads) if seg.attn else None,
+              "cross": ctx.tp_for(cfg.n_heads) if seg.cross else None,
               "ssm": ctx.tp_for(cfg.ssm_d_inner) if seg.ssm else None,
               "mlp": ctx.tp_for(seg.d_ff) if seg.ffn == "mlp" else None}
     if seg.ffn == "moe":
@@ -193,9 +196,12 @@ def _block_uses(p: Params, groups: Dict[str, Any], serving: bool = False
     (see ``sharding.parallel``): a sublayer with a group computes on its
     weights' shards (Mamba on its x and z columns of ``in_proj``, a
     SLICE in training, its own column block when `serving`; the router
-    is whole), any other gathers them.  Under sequence parallelism the
-    norms run on the rank's sequence chunk: a SLICE, so their gradients
-    are summed over the model axis."""
+    is whole), any other gathers them.  A SHARD weight that the plan
+    left whole over the model axis is used as a SLICE: MLA's latent
+    norms, which normalize the gathered latent on every rank for its
+    own heads.  Under sequence parallelism the norms run on the rank's
+    sequence chunk: a SLICE, so their gradients are summed over the
+    model axis."""
     def all_(tree, group):
         return tree_map(lambda _: GATHER if group is None else SHARD, tree)
 
@@ -251,9 +257,9 @@ def _mixer_forward(cfg, seg: Segment, p: Params, x, positions, groups,
         cache.update(kv)
         parts.append(a)
     elif seg.attn == "mla":
-        a, kv = _on_sequence(groups, None, lambda h_, _: (
+        a, kv = _on_sequence(groups, "attn", lambda h_, tp: (
             attn_lib.mla_forward(cfg, p["attn"], h_, positions,
-                                 k_valid=k_valid)), h)
+                                 k_valid=k_valid, tp=tp)), h)
         cache.update(kv)
         parts.append(a)
     if seg.ssm:
@@ -283,11 +289,17 @@ def block_forward(cfg, seg: Segment, p: Params, x, positions, enc_out=None,
     x = x + dx
     if seg.cross:
         h = common.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
-        k = torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wk"])
-        v = torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wv"])
-        c, ckv = _on_sequence(groups, None, lambda h_, _: (
+        # the rank's kv heads (all of them where the model axis does not
+        # divide them) of the encoder output, whole on every rank: its
+        # gradient is the sum of the ranks' heads'
+        kv_tp = groups.get("cross")
+        src = enc_out if kv_tp is None else kv_tp.copy_in(enc_out)
+        k = torch.einsum("bsd,dhk->bshk", src, p["cross"]["wk"])
+        v = torch.einsum("bsd,dhk->bshk", src, p["cross"]["wv"])
+        c, ckv = _on_sequence(groups, "cross", lambda h_, tp: (
             attn_lib.gqa_forward(cfg, p["cross"], h_, positions,
-                                 causal=False, kv_override=(k, v))), h)
+                                 causal=False, kv_override=(k, v),
+                                 tp=tp)), h)
         cache["xk"], cache["xv"] = ckv["k"], ckv["v"]
         x = x + c
     if seg.ffn:
@@ -330,8 +342,8 @@ def block_decode(cfg, seg: Segment, p: Params, x, cache: Dict[str, Any],
     elif seg.attn == "mla":
         a, kv = attn_lib.mla_decode(
             cfg, p["attn"], h, {"ckv": cache["ckv"], "k_rope": cache["k_rope"]},
-            pos, start=start,
-            seq=model if layouts.get("ckv") == "seq" else None)
+            pos, start=start, tp=groups.get("attn"), model=model,
+            layout=layouts.get("ckv"))
         new_cache.update(kv)
         parts.append(a)
     if seg.ssm:
@@ -351,8 +363,8 @@ def block_decode(cfg, seg: Segment, p: Params, x, cache: Dict[str, Any],
         h = common.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
         c, _ = attn_lib.gqa_decode(cfg, p["cross"], h,
                                    {"k": cache["xk"], "v": cache["xv"]},
-                                   pos, cross=True, model=model,
-                                   layout=layouts.get("xk"))
+                                   pos, cross=True, tp=groups.get("cross"),
+                                   model=model, layout=layouts.get("xk"))
         new_cache["xk"], new_cache["xv"] = cache["xk"], cache["xv"]
         x = x + c
     if seg.ffn:

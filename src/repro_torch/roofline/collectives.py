@@ -22,7 +22,8 @@ where g is the group's size.  A group of one moves nothing.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, NamedTuple,
+                    Optional, Tuple)
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -31,17 +32,16 @@ COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 
 # op name -> (kind, the argument whose tensors are the payload ("out" for
-# the op's result), the argument that names the group): DTensor's
+# the op's result), the argument holding its input): DTensor's
 # functional collectives and the in-place sum of ``sharding/parallel.py``
 _OPS: Dict[str, Tuple[str, str, str]] = {
     "_c10d_functional.all_gather_into_tensor": ("all-gather", "out",
-                                                "group_size"),
+                                                "input"),
     "_c10d_functional.reduce_scatter_tensor": ("reduce-scatter", "out",
-                                               "group_size"),
-    "_c10d_functional.all_reduce": ("all-reduce", "input", "group_name"),
-    "_c10d_functional.all_to_all_single": ("all-to-all", "input",
-                                           "group_name"),
-    "c10d.allreduce_": ("all-reduce", "tensors", "process_group"),
+                                               "input"),
+    "_c10d_functional.all_reduce": ("all-reduce", "input", "input"),
+    "_c10d_functional.all_to_all_single": ("all-to-all", "input", "input"),
+    "c10d.allreduce_": ("all-reduce", "tensors", "tensors"),
 }
 
 
@@ -53,14 +53,21 @@ def _nbytes(x: Any) -> int:
     return 0
 
 
-def _group_size(kind_arg: str, value: Any) -> int:
-    if kind_arg == "group_size":
-        return int(value)
-    if kind_arg == "group_name":
+def _group(named: Dict[str, Any]) -> Tuple[int, str]:
+    """(size, name) of the group a collective's arguments name."""
+    if "group_name" in named:
         from torch.distributed.distributed_c10d import _resolve_process_group
-        return _resolve_process_group(value).size()
-    from torch.distributed import ProcessGroup
-    return ProcessGroup.unbox(value).size()     # a script object
+        pg = _resolve_process_group(named["group_name"])
+    else:
+        from torch.distributed import ProcessGroup
+        pg = ProcessGroup.unbox(named["process_group"])  # a script object
+    return pg.size(), pg.group_name
+
+
+def _shape(x: Any) -> Tuple[int, ...]:
+    if isinstance(x, (list, tuple)):
+        return _shape(x[0]) if len(x) == 1 else tuple(_shape(v) for v in x)
+    return tuple(x.shape)
 
 
 def payload(kind: str, nbytes: float, g: int) -> float:
@@ -76,33 +83,47 @@ def payload(kind: str, nbytes: float, g: int) -> float:
     return float(nbytes)
 
 
+class Call(NamedTuple):
+    """One collective: its kind, its payload tensors' bytes, its group's
+    size and name, and the shape of its input (a tuple of shapes for a
+    list of several tensors)."""
+    kind: str
+    nbytes: int
+    g: int
+    group: str
+    shape: Tuple
+
+
 class CollectiveCounter(TorchDispatchMode):
     """Counts the collectives dispatched inside it: ``calls`` holds one
-    (kind, payload tensors' bytes, group size) per op, :meth:`bytes` the
-    per-device sums."""
+    :class:`Call` per op, :meth:`bytes` the per-device sums."""
 
     def __init__(self):
         super().__init__()
-        self.calls: List[Tuple[str, int, int]] = []
+        self.calls: List[Call] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         rule = _OPS.get(func._schema.name.replace("::", "."))
         if rule is not None:
-            kind, data, group = rule
+            kind, data, inp = rule
             named = {a.name: v for a, v in zip(func._schema.arguments, args)}
             named.update(kwargs)
             nbytes = _nbytes(out if data == "out" else named[data])
-            self.calls.append((kind, nbytes, _group_size(group,
-                                                         named[group])))
+            self.calls.append(Call(kind, nbytes, *_group(named),
+                                   _shape(named[inp])))
         return out
 
-    def bytes(self) -> Dict[str, float]:
-        """{kind: bytes per device} for every kind, plus ``"total"``."""
+    def bytes(self, groups: Optional[Iterable[str]] = None
+              ) -> Dict[str, float]:
+        """{kind: bytes per device} for every kind, plus ``"total"``; with
+        `groups` (group names) only the collectives over those groups."""
+        keep = None if groups is None else set(groups)
         totals = {k: 0.0 for k in COLLECTIVES}
-        for kind, nbytes, g in self.calls:
-            totals[kind] += payload(kind, nbytes, g)
+        for c in self.calls:
+            if keep is None or c.group in keep:
+                totals[c.kind] += payload(c.kind, c.nbytes, c.g)
         totals["total"] = sum(totals.values())
         return totals
 

@@ -82,18 +82,18 @@ def _sum_out(x: torch.Tensor, group) -> torch.Tensor:
     return torch.ops._c10d_functional.wait_tensor(y)
 
 
-def _seq_all_gather(x: torch.Tensor, g: "Group") -> torch.Tensor:
-    """The group's sequence chunks (dim 1) gathered, rank order."""
+def _gather_dim(x: torch.Tensor, g: "Group", dim: int) -> torch.Tensor:
+    """The group's blocks of `x` concatenated on `dim`, rank order."""
     y = torch.ops._c10d_functional.all_gather_into_tensor(
-        x.transpose(0, 1).contiguous(), g.size, g.group.group_name)
-    return torch.ops._c10d_functional.wait_tensor(y).transpose(0, 1)
+        x.movedim(dim, 0).contiguous(), g.size, g.group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(y).movedim(0, dim)
 
 
-def _seq_reduce_scatter(x: torch.Tensor, g: "Group") -> torch.Tensor:
-    """This rank's sequence chunk (dim 1) of the sum over the group."""
+def _scatter_dim(x: torch.Tensor, g: "Group", dim: int) -> torch.Tensor:
+    """This rank's block (on `dim`) of the sum over the group."""
     y = torch.ops._c10d_functional.reduce_scatter_tensor(
-        x.transpose(0, 1).contiguous(), "sum", g.size, g.group.group_name)
-    return torch.ops._c10d_functional.wait_tensor(y).transpose(0, 1)
+        x.movedim(dim, 0).contiguous(), "sum", g.size, g.group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(y).movedim(0, dim)
 
 
 def _seq_chunk(x: torch.Tensor, g: "Group") -> torch.Tensor:
@@ -146,22 +146,6 @@ class _CopyIn(torch.autograd.Function):
         return g, None
 
 
-class _SeqGather(torch.autograd.Function):
-    """The sequence gathered from its chunks; the gradient
-    reduce-scattered (``grad_sum``: every rank's is a partial sum) or
-    sliced (every rank holds the whole gradient)."""
-
-    @staticmethod
-    def forward(ctx, x, g, grad_sum):
-        ctx.g, ctx.grad_sum = g, grad_sum
-        return _seq_all_gather(x, g)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return (_seq_reduce_scatter(grad, ctx.g) if ctx.grad_sum
-                else _seq_chunk(grad, ctx.g)), None, None
-
-
 class _SeqScatter(torch.autograd.Function):
     """This rank's sequence chunk of a sum of partials (``summed``: a
     reduce-scatter) or of a tensor every rank holds whole (a slice); the
@@ -170,12 +154,32 @@ class _SeqScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, summed):
         ctx.g = g
-        return (_seq_reduce_scatter(x, g) if summed
+        return (_scatter_dim(x, g, 1) if summed
                 else _seq_chunk(x, g).clone())
 
     @staticmethod
     def backward(ctx, grad):
-        return _seq_all_gather(grad.contiguous(), ctx.g), None, None
+        return _gather_dim(grad, ctx.g, 1), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The group's blocks gathered on `dim`; the gradient
+    reduce-scattered back to the blocks (``grad_sum``: the gathered
+    tensor feeds this rank's share of the work, so every rank's gradient
+    is a partial sum) or sliced (every rank holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, g, dim, grad_sum):
+        ctx.g, ctx.dim, ctx.grad_sum = g, dim, grad_sum
+        return _gather_dim(x, g, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g, dim = ctx.g, ctx.dim
+        if ctx.grad_sum:
+            return _scatter_dim(grad, g, dim), None, None, None
+        n = grad.shape[dim] // g.size
+        return grad.narrow(dim, g.rank * n, n), None, None, None
 
 
 class Group:
@@ -217,13 +221,11 @@ class Group:
         return x
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The group's blocks of `x` concatenated on `dim`, rank order
-        (outside autograd: the serving steps' activations)."""
-        if self.size == 1:
-            return x
-        y = torch.ops._c10d_functional.all_gather_into_tensor(
-            x.movedim(dim, 0).contiguous(), self.size, self.group.group_name)
-        return torch.ops._c10d_functional.wait_tensor(y).movedim(0, dim)
+        """The group's blocks of `x` concatenated on `dim`, rank order: an
+        activation that feeds this rank's share of the work (MLA's
+        latent columns, a decode step's queries), so its gradient is
+        reduce-scattered."""
+        return x if self.size == 1 else _Gather.apply(x, self, dim, True)
 
 
 def local_block(global_shape, mesh, pls) -> tuple:
@@ -385,7 +387,7 @@ class SeqGroup:
         self.group = group.group
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
-        return _SeqGather.apply(x, self.base, True)
+        return _Gather.apply(x, self.base, 1, True)
 
     def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
         return _SeqScatter.apply(x, self.base, True)
@@ -396,8 +398,11 @@ class SeqGroup:
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return self.base.max(x)
 
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return self.base.all_gather(x, dim)
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        return _SeqGather.apply(x, self.base, False)
+        return _Gather.apply(x, self.base, 1, False)
 
     def scatter(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] % self.size:
