@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.tracing import span
 from repro_torch.util import Device, resolve_device
 
 
@@ -75,7 +76,9 @@ class TokenPipeline:
             step = from_step
             while not self._stop.is_set():
                 try:
-                    self._q.put((step, self.batch_at(step)), timeout=0.1)
+                    with span("data.batch", step=step):
+                        b = self.batch_at(step)
+                    self._q.put((step, b), timeout=0.1)
                     step += 1
                 except queue.Full:
                     continue
@@ -88,12 +91,13 @@ class TokenPipeline:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        if self._thread is None:
-            b = self.batch_at(self._next_step)
-            self._next_step += 1
+        with span("data.wait"):
+            if self._thread is None:
+                b = self.batch_at(self._next_step)
+                self._next_step += 1
+                return b
+            _, b = self._q.get()
             return b
-        _, b = self._q.get()
-        return b
 
     def stop(self) -> None:
         self._stop.set()

@@ -83,6 +83,7 @@ from repro_torch.models.layers import common, mamba as mamba_lib, moe as moe_lib
 from repro_torch.sharding import parallel
 from repro_torch.sharding.parallel import GATHER, SHARD, SLICE
 from repro_torch.sharding.planner import Plan, Spec
+from repro_torch.tracing import forward_span
 from repro_torch.util import Device, resolve_device, tree_map
 
 Params = Dict[str, Any]
@@ -249,22 +250,25 @@ def _mixer_forward(cfg, seg: Segment, p: Params, x, positions, groups,
     cache: Dict[str, Any] = {}
     parts = []
     if seg.attn == "gqa":
-        a, kv = _on_sequence(groups, "attn", lambda h_, tp: (
-            attn_lib.gqa_forward(cfg, p["attn"], h_, positions,
-                                 causal=seg.causal, window=seg.window,
-                                 k_valid=k_valid, tp=tp,
-                                 whole_kv=whole_kv)), h)
+        with forward_span("model.attention"):
+            a, kv = _on_sequence(groups, "attn", lambda h_, tp: (
+                attn_lib.gqa_forward(cfg, p["attn"], h_, positions,
+                                     causal=seg.causal, window=seg.window,
+                                     k_valid=k_valid, tp=tp,
+                                     whole_kv=whole_kv)), h)
         cache.update(kv)
         parts.append(a)
     elif seg.attn == "mla":
-        a, kv = _on_sequence(groups, "attn", lambda h_, tp: (
-            attn_lib.mla_forward(cfg, p["attn"], h_, positions,
-                                 k_valid=k_valid, tp=tp)), h)
+        with forward_span("model.attention"):
+            a, kv = _on_sequence(groups, "attn", lambda h_, tp: (
+                attn_lib.mla_forward(cfg, p["attn"], h_, positions,
+                                     k_valid=k_valid, tp=tp)), h)
         cache.update(kv)
         parts.append(a)
     if seg.ssm:
-        s, sc = _on_sequence(groups, "ssm", lambda h_, tp: (
-            mamba_lib.mamba_forward(cfg, p["ssm"], h_, tp)), h)
+        with forward_span("model.mamba"):
+            s, sc = _on_sequence(groups, "ssm", lambda h_, tp: (
+                mamba_lib.mamba_forward(cfg, p["ssm"], h_, tp)), h)
         cache.update(sc)
         parts.append(s)
     if len(parts) == 2:  # Hymba fusion: mean of per-branch RMS-normed outputs
@@ -305,8 +309,9 @@ def block_forward(cfg, seg: Segment, p: Params, x, positions, enc_out=None,
     if seg.ffn:
         h = common.rmsnorm(p["ln2"], x, cfg.norm_eps)
         if seg.ffn == "mlp":
-            out, _ = _on_sequence(groups, "mlp", lambda h_, tp: (
-                common.mlp(p["mlp"], h_, tp), None), h)
+            with forward_span("model.mlp"):
+                out, _ = _on_sequence(groups, "mlp", lambda h_, tp: (
+                    common.mlp(p["mlp"], h_, tp), None), h)
         else:
             # the router and the experts see the whole sequence
             out, aux = _on_sequence(groups, None, lambda h_, _: (
@@ -408,18 +413,19 @@ def _layer(seg_params: Params, i: int) -> Params:
 
 def _remat_block(cfg, seg: Segment, lp: Params, x, positions, enc_out,
                  moe_groups: int, moe_ep_axis, ctx=None, uses=None,
-                 policy=None):
+                 policy=None, layer: int = 0):
     """block_forward under ``torch.utils.checkpoint``: only the layer's
     input is kept (and what `policy`, a ``REMAT_POLICIES`` value, saves),
     and backward recomputes the layer.  Returns (x, aux); a training
     forward keeps no cache.  On a sharded step the layer's params are
     gathered inside, so backward gathers them again and no gathered copy
-    outlives the layer."""
+    outlives the layer.  `layer` (the stack's index) names its span."""
     def body(x, lp, enc_out):
-        if ctx is not None:
-            lp = ctx.localize_tree(lp, uses)
-        y, _, aux = block_forward(cfg, seg, lp, x, positions, enc_out,
-                                  moe_groups, moe_ep_axis, ctx=ctx)
+        with forward_span("model.block", layer=layer):
+            if ctx is not None:
+                lp = ctx.localize_tree(lp, uses)
+            y, _, aux = block_forward(cfg, seg, lp, x, positions, enc_out,
+                                      moe_groups, moe_ep_axis, ctx=ctx)
         return y, aux
     if policy is None:
         return checkpoint(body, x, lp, enc_out, use_reentrant=False)
@@ -447,6 +453,7 @@ def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
         raise ValueError("remat keeps no caches and takes no pad mask")
     caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer = 0       # the stack's index of the segment's first layer
     for seg, sp in zip(segs, seg_params):
         layer_caches, auxes = [], []
         uses = None
@@ -459,16 +466,18 @@ def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
             if remat:
                 x, aux = _remat_block(cfg, seg, _layer(sp, i), x, positions,
                                       enc_out, moe_groups, moe_ep_axis, ctx,
-                                      uses, REMAT_POLICIES[remat_policy])
+                                      uses, REMAT_POLICIES[remat_policy],
+                                      layer + i)
                 auxes.append(aux)
                 continue
             lp = _layer(sp, i)
-            if gather:
-                lp = ctx.localize_tree(lp, uses)
-            x, cache, aux = block_forward(cfg, seg, lp, x,
-                                          positions, enc_out, moe_groups,
-                                          moe_ep_axis, k_valid, ctx=ctx,
-                                          whole_kv=want_cache)
+            with forward_span("model.block", layer=layer + i):
+                if gather:
+                    lp = ctx.localize_tree(lp, uses)
+                x, cache, aux = block_forward(cfg, seg, lp, x,
+                                              positions, enc_out, moe_groups,
+                                              moe_ep_axis, k_valid, ctx=ctx,
+                                              whole_kv=want_cache)
             auxes.append(aux)
             if want_cache:
                 layer_caches.append(cache if place is None else
@@ -479,6 +488,7 @@ def _run_segments(cfg, segs, seg_params, x, positions, enc_out=None, *,
         else:
             caches.append({})
         aux_total = aux_total + torch.stack(auxes).sum()
+        layer += seg.n_layers
     return x, caches, aux_total
 
 
@@ -545,7 +555,8 @@ def embed_inputs(cfg: ModelConfig, params: Params,
 def _hidden_states(cfg, params, batch, *, remat: bool = False,
                    moe_groups=1, moe_ep_axis=None, ctx=None,
                    remat_policy=None):
-    """Forward to final hidden states (pre-unembed)."""
+    """Forward through the stack, to the hidden states before the final
+    norm (``_final_norm``)."""
     enc_out = (_encode(cfg, params, batch, remat=remat, ctx=ctx)
                if cfg.is_encoder_decoder else None)
     x = embed_inputs(cfg, params, batch, ctx)
@@ -555,8 +566,14 @@ def _hidden_states(cfg, params, batch, *, remat: bool = False,
                               remat=remat, moe_groups=moe_groups,
                               moe_ep_axis=moe_ep_axis, ctx=ctx,
                               remat_policy=remat_policy)
+    return x, aux
+
+
+def _final_norm(cfg, params, ctx, x):
+    """The final norm of the stack's output: the hidden states that the
+    head takes, over the whole sequence."""
     norm = _norm_on_chunk(ctx, params["final_norm"])
-    return _seq_whole(ctx, common.rmsnorm(norm, x, cfg.norm_eps)), aux
+    return _seq_whole(ctx, common.rmsnorm(norm, x, cfg.norm_eps))
 
 
 def _sharded_step(params: Params, batch: Dict[str, Any], act_spec):
@@ -579,6 +596,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     x, aux = _hidden_states(cfg, params, local, remat=remat,
                             moe_groups=moe_groups, moe_ep_axis=moe_ep_axis,
                             ctx=ctx)
+    x = _final_norm(cfg, params, ctx, x)
     tp = _vocab_tp(cfg, ctx)
     logits = common.unembed(cfg, _table(cfg, params, ctx), x, tp)
     if ctx is None:
@@ -597,25 +615,10 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor, tp
     return common.token_nll(logits, labels)
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, aux_coef: float = 0.01, remat: bool = True, act_spec=None,
-            moe_groups: int = 1, moe_ep_axis=None,
-            remat_policy=None) -> torch.Tensor:
-    """Mean next-token NLL plus `aux_coef` times the MoE aux loss;
-    differentiable (``loss.backward()`` or ``torch.autograd.grad``).
-    On a sharded step (DTensor params) it is the global batch's loss on
-    every rank, and the gradients reach the DTensor params in their own
-    placements.  ``remat_policy`` names a ``REMAT_POLICIES`` entry (an
-    unknown name raises).  ``act_spec=Plan.act_spec(sp=True)`` runs the
-    step sequence-parallel; the outputs ``save_tp_out`` saves are then
-    kept as the TP collectives leave them, split on the sequence."""
-    if remat_policy not in REMAT_POLICIES:
-        raise ValueError(f"loss_fn: unknown remat_policy {remat_policy!r}; "
-                         f"known: {sorted(k for k in REMAT_POLICIES if k)}")
-    ctx, batch = _sharded_step(params, batch, act_spec)
-    x, aux = _hidden_states(cfg, params, batch, remat=remat,
-                            moe_groups=moe_groups, moe_ep_axis=moe_ep_axis,
-                            ctx=ctx, remat_policy=remat_policy)
+def _head_nll(cfg, params: Params, batch: Dict[str, torch.Tensor], ctx, x
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed NLL, token count) of the head over the final hidden states
+    `x`, masked by the batch's ``mask``."""
     tp = _vocab_tp(cfg, ctx)
     table = _table(cfg, params, ctx)
     labels, mask = batch["labels"], batch["mask"].float()
@@ -643,6 +646,31 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
         logits = common.unembed(cfg, table, x, tp)
         tot = torch.sum(_token_nll(logits, labels, tp) * mask)
         cnt = torch.sum(mask)
+    return tot, cnt
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+            *, aux_coef: float = 0.01, remat: bool = True, act_spec=None,
+            moe_groups: int = 1, moe_ep_axis=None,
+            remat_policy=None) -> torch.Tensor:
+    """Mean next-token NLL plus `aux_coef` times the MoE aux loss;
+    differentiable (``loss.backward()`` or ``torch.autograd.grad``).
+    On a sharded step (DTensor params) it is the global batch's loss on
+    every rank, and the gradients reach the DTensor params in their own
+    placements.  ``remat_policy`` names a ``REMAT_POLICIES`` entry (an
+    unknown name raises).  ``act_spec=Plan.act_spec(sp=True)`` runs the
+    step sequence-parallel; the outputs ``save_tp_out`` saves are then
+    kept as the TP collectives leave them, split on the sequence."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"loss_fn: unknown remat_policy {remat_policy!r}; "
+                         f"known: {sorted(k for k in REMAT_POLICIES if k)}")
+    ctx, batch = _sharded_step(params, batch, act_spec)
+    x, aux = _hidden_states(cfg, params, batch, remat=remat,
+                            moe_groups=moe_groups, moe_ep_axis=moe_ep_axis,
+                            ctx=ctx, remat_policy=remat_policy)
+    with forward_span("model.loss"):
+        tot, cnt = _head_nll(cfg, params, batch, ctx,
+                             _final_norm(cfg, params, ctx, x))
     if ctx is None:
         return tot / cnt.clamp_min(1.0) + aux_coef * aux
     # every rank adds its share (the global count's, and 1 / n_batch of

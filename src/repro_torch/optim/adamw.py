@@ -26,6 +26,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.sharding.parallel import local
+from repro_torch.tracing import span
 from repro_torch.util import tree_leaves, tree_map
 
 # leaves bigger than this (bytes) with a leading stack dim go layer by layer
@@ -85,35 +86,37 @@ def update(params: Any, grads: Any, opt: Dict[str, Any],
            ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  Returns (params, opt, metrics) with
     params and opt the trees passed in, holding the new values."""
-    gnorm = global_norm(grads)
-    dev = gnorm.device
-    scale = torch.clamp(hyper.clip_norm / torch.clamp(gnorm, min=1e-9),
-                        max=1.0)
-    t = _f32(step, dev) + 1.0
-    bc1 = 1.0 - torch.pow(_f32(hyper.b1, dev), t)
-    bc2 = 1.0 - torch.pow(_f32(hyper.b2, dev), t)
-    lr = hyper.lr * _f32(lr_scale, dev)
+    with span("train.optimizer"):
+        gnorm = global_norm(grads)
+        dev = gnorm.device
+        scale = torch.clamp(hyper.clip_norm / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        t = _f32(step, dev) + 1.0
+        bc1 = 1.0 - torch.pow(_f32(hyper.b1, dev), t)
+        bc2 = 1.0 - torch.pow(_f32(hyper.b2, dev), t)
+        lr = hyper.lr * _f32(lr_scale, dev)
 
-    def elementwise(p, g, m, v):
-        g32 = g.float() * scale
-        m32 = hyper.b1 * m.float() + (1.0 - hyper.b1) * g32
-        v32 = hyper.b2 * v.float() + (1.0 - hyper.b2) * torch.square(g32)
-        mh = m32 / bc1
-        vh = v32 / bc2
-        delta = mh / (torch.sqrt(vh) + hyper.eps) \
-            + hyper.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        m.copy_(m32)
-        v.copy_(v32)
+        def elementwise(p, g, m, v):
+            g32 = g.float() * scale
+            m32 = hyper.b1 * m.float() + (1.0 - hyper.b1) * g32
+            v32 = hyper.b2 * v.float() + (1.0 - hyper.b2) * torch.square(g32)
+            mh = m32 / bc1
+            vh = v32 / bc2
+            delta = mh / (torch.sqrt(vh) + hyper.eps) \
+                + hyper.weight_decay * p.float()
+            p.copy_(p.float() - lr * delta)
+            m.copy_(m32)
+            v.copy_(v32)
 
-    def upd(p, g, m, v):
-        p, g, m, v = (local(t) for t in (p, g, m, v))
-        nbytes = p.numel() * p.element_size()
-        if p.ndim >= 3 and p.shape[0] > 1 and nbytes > _SCANNED_UPDATE_BYTES:
-            for i in range(p.shape[0]):
-                elementwise(p[i], g[i], m[i], v[i])
-        else:
-            elementwise(p, g, m, v)
+        def upd(p, g, m, v):
+            p, g, m, v = (local(t) for t in (p, g, m, v))
+            nbytes = p.numel() * p.element_size()
+            if (p.ndim >= 3 and p.shape[0] > 1
+                    and nbytes > _SCANNED_UPDATE_BYTES):
+                for i in range(p.shape[0]):
+                    elementwise(p[i], g[i], m[i], v[i])
+            else:
+                elementwise(p, g, m, v)
 
-    tree_map(upd, params, grads, opt["m"], opt["v"])
-    return params, opt, {"grad_norm": gnorm}
+        tree_map(upd, params, grads, opt["m"], opt["v"])
+        return params, opt, {"grad_norm": gnorm}

@@ -31,6 +31,7 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, schedule
 from repro_torch.sharding import parallel
+from repro_torch.tracing import span
 from repro_torch.util import tree_leaves, tree_map
 
 TrainState = Dict[str, Any]
@@ -87,8 +88,10 @@ def value_and_grad(loss_of, params: Any) -> Tuple[torch.Tensor, Any]:
         leaves.append(q)
         return q
 
-    loss = loss_of(tree_map(leaf, params))
-    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+    with span("train.forward"):
+        loss = loss_of(tree_map(leaf, params))
+    with span("train.backward"):
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
 
     def grad_of(p):
         g = next(grads)
@@ -122,7 +125,8 @@ def make_train_step(cfg: ModelConfig, *, hyper: adamw.Hyper = adamw.Hyper(),
 
     def grads_of(params, batch):
         if n_microbatches == 1:
-            return value_and_grad(lambda p: loss_of(p, batch), params)
+            with span("train.microbatch", mb=0):
+                return value_and_grad(lambda p: loss_of(p, batch), params)
 
         def split(x, i):
             b = x.shape[0]
@@ -132,20 +136,23 @@ def make_train_step(cfg: ModelConfig, *, hyper: adamw.Hyper = adamw.Hyper(),
 
         tot_l = tot_g = None
         for i in range(n_microbatches):
-            mb = {k: split(v, i) for k, v in batch.items()}
-            l, g = value_and_grad(lambda p: loss_of(p, mb), params)
-            tot_l = l if tot_l is None else tot_l + l
-            if tot_g is None:
-                tot_g = tree_map(lambda x: x.to(accum_dtype), g)
-            else:
-                # shard by shard: a DTensor's gradient is already in its
-                # parameter's placements
-                tree_map(lambda a, x: parallel.local(a).add_(
-                    parallel.local(x).to(accum_dtype)), tot_g, g)
-            del g
+            with span("train.microbatch", mb=i):
+                mb = {k: split(v, i) for k, v in batch.items()}
+                l, g = value_and_grad(lambda p: loss_of(p, mb), params)
+                with span("train.accumulate"):
+                    tot_l = l if tot_l is None else tot_l + l
+                    if tot_g is None:
+                        tot_g = tree_map(lambda x: x.to(accum_dtype), g)
+                    else:
+                        # shard by shard: a DTensor's gradient is already
+                        # in its parameter's placements
+                        tree_map(lambda a, x: parallel.local(a).add_(
+                            parallel.local(x).to(accum_dtype)), tot_g, g)
+                del g
         inv = 1.0 / n_microbatches
-        tree_map(lambda x: parallel.local(x).mul_(inv), tot_g)
-        return tot_l * inv, tot_g
+        with span("train.accumulate"):
+            tree_map(lambda x: parallel.local(x).mul_(inv), tot_g)
+            return tot_l * inv, tot_g
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

@@ -48,6 +48,7 @@ from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw, schedule
 from repro_torch.sharding import Plan, parallel
+from repro_torch.tracing import span
 from repro_torch.train.step import (abstract_train_state, make_train_state,
                                     make_train_step)
 from repro_torch.util import tree_map
@@ -163,8 +164,10 @@ class Trainer:
                 if inject_failure_at is not None and i == inject_failure_at:
                     raise RuntimeError("injected node failure")
                 t0 = time.monotonic()
-                self.state, metrics = self._step(self.state, batch)
-                metrics = {k: float(v) for k, v in metrics.items()}
+                with span("train.step", step=i):
+                    self.state, metrics = self._step(self.state, batch)
+                    with span("train.sync"):    # the host waits for the step
+                        metrics = {k: float(v) for k, v in metrics.items()}
                 metrics["step"] = i
                 metrics["step_s"] = time.monotonic() - t0
                 self.history.append(metrics)
