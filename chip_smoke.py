@@ -22,7 +22,13 @@ Phases (any failure raises and the script exits non-zero):
   4. a torch.profiler breakdown of one K-Means run per scenario;
   5. mamba_scan against its plain version at the reference's test
      shapes, Hymba-1.5B and Falcon-Mamba-7B widths, an odd shape and
-     bf16, then timed beside its bound and its plain version;
+     bf16, then timed beside its bound and its plain version; (b) K3's
+     fused mode (``ops.selective_scan``: dt, u, A, Bc and C in, a and b
+     formed in registers) against the (a, b) mode on the a and b the
+     model's own ops materialize, h_last and y bit for bit, at the
+     training, prefill and Falcon-Mamba-7B shapes and ragged ones, timed
+     at the training and Falcon shapes beside its bound, the (a, b) mode
+     and the path it replaced (those ops, then the (a, b) mode);
   6. flash_attention against its plain version at Hymba-1.5B (windowed
      and full causal), Llama-3.2-1B, Yi-6B and SeamlessM4T-medium
      encoder widths, a prime S, bf16, S_q != S_k, a window narrower than
@@ -31,10 +37,11 @@ Phases (any failure raises and the script exits non-zero):
      the units it runs on, its plain version and
      scaled_dot_product_attention;
   7. the autotuner entry point, ``autotune.main`` once per kernel family
-     against a temporary registry: launches counted, a second call is a
-     cache hit, the wrappers resolve the tuned blocks, a call at them
-     matches the plain version, and K1 is bitwise equal across every
-     candidate block size;
+     (K3's fused mode its own) against a temporary registry: launches
+     counted, a second call is a cache hit, the wrappers resolve the
+     tuned blocks, a call at them matches the plain version (the fused
+     mode: the (a, b) mode, bit for bit), and K1 is bitwise equal across
+     every candidate block size;
   8. the Session (the paper's Fig 8): pilots ``hpc`` and ``ana`` on one
      card, ``simulate`` -> ``analyze`` (kmeans_fit with K1) at each
      K-Means scenario and DCN cost: native on ``ana`` moving n*d*4 bytes
@@ -89,8 +96,9 @@ Phases (any failure raises and the script exits non-zero):
      CU on a Pilot), on the sharding layer's plan path: a 1 x 1
      ``DeviceMesh`` over NCCL world size 1, params and moments DTensors
      placed by ``sharding.Plan``, K3 and the fused backward reached
-     through each layer's local shard: finite, falling loss, K3 128, the
-     fused backward 64 and K3-bwd 0 launches a step, one profiled step, a
+     through each layer's local shard: finite, falling loss, K3 128 (all
+     128 in its fused mode), the fused backward 64 and K3-bwd 0 launches
+     a step, one profiled step, a
      blocking save of the whole (DTensor) state and a restore into a
      fresh Trainer (bitwise), and resume exactness at 4 layers (rel
      1e-3); (d) the paper's simulate -> analyze -> train DAG
@@ -171,7 +179,10 @@ reads it after (``launches_model``), and so does phase 12
 (``launches_engine``).  Phases 13c and 13d set K3's, the fused
 backward's and K3-bwd's counts to 0 before them and read them after
 (``launches_train``, ``launches_hybrid``; the fused backward's and
-K3-bwd's ``launches`` are 13c's: K3-bwd is off the model path, 0), and
+K3-bwd's ``launches`` are 13c's: K3-bwd is off the model path, 0; 13c
+also K3's fused count, every one of its K3 launches, which is the
+``mamba_scan_fused`` record's ``launches``; K3's ``LAUNCHES`` counts both
+of its modes), and
 phase 14a around its plain steps (``launches_plain``), and phase 15d
 around its steps (``launches_save_tp_out``), and phase 16a around its
 prefills and decode steps (``launches_serve_sharded``).
@@ -258,12 +269,24 @@ ATTN_CASES = [
      False)
     for B, S, H, hd in ((1, 128, 2, 32), (2, 256, 4, 64), (1, 512, 1, 128))
     for c, w in ((True, 0), (True, 64), (False, 0))]
-# phase 7's shapes: Hymba-1.5B's windowed attention and its Mamba width,
-# the paper's 10k x 5000 K-Means
+# phase 5b: K3's fused mode (label, B, S, di, st, timed) at Hymba-1.5B's
+# training microbatch and prefill, Falcon-Mamba-7B's width and ragged
+# shapes (S past a whole chunk, di off every block, st 1, 5 and 32)
+FUSED_CASES = [
+    ("hymba-1.5b train", 4, 2048, 3200, 16, True),
+    ("falcon-mamba-7b", 1, 2048, 8192, 16, True),
+    ("hymba-1.5b prefill", 1, 4096, 3200, 16, False),
+    ("ragged 2x37x50x5", 2, 37, 50, 5, False),
+    ("ragged 3x70x33x1", 3, 70, 33, 1, False),
+    ("ragged 1x45x97x32", 1, 45, 97, 32, False),
+]
+# phase 7's shapes: Hymba-1.5B's windowed attention, its Mamba width (K3's
+# fused mode at its training microbatch), the paper's 10k x 5000 K-Means
 TUNE_SHAPES = {
     "flash_attention": {"B": 1, "H": 25, "S_q": 4096, "S_k": 4096, "hd": 64,
                         "causal": 1, "window": 2048},
     "mamba_scan": {"B": 1, "S": 4096, "di": 3200, "st": 16},
+    "mamba_scan_fused": {"B": 4, "S": 2048, "di": 3200, "st": 16},
     "kmeans": {"n": 10_000, "k": 5_000, "d": 3},
 }
 # phase 11a: one Mamba layer over two of the reference's scan chunks, then
@@ -483,6 +506,16 @@ def scan_bound(B: int, S: int, di: int, st: int, es: int) -> dict:
     nbytes = es * (2 * B * S * di * st + B * S * st + B * di * st) \
         + 4 * (B * S * di + B * di * st)
     return bound_of(nbytes, 4 * B * S * di * st)
+
+
+def fused_scan_bound(B: int, S: int, di: int, st: int) -> dict:
+    """The scan from the layer's own inputs (bench/lib/bounds.py's
+    scan_bound): dt, u (B, S, di), Bc, C (B, S, st), A (di, st) and h0
+    read once, y and h_last written once, f32; 7 operations an element of
+    the state (dt A, exp, u Bc, h's multiply-add, the readout's)."""
+    nbytes = 4 * (3 * B * S * di + 2 * B * S * st + di * st
+                  + 2 * B * di * st)
+    return bound_of(nbytes, 7 * B * S * di * st)
 
 
 def live_pairs(S_q: int, S_k: int, causal: bool, window: int) -> int:
@@ -765,6 +798,80 @@ def phase_scan(torch, dev):
     return max_err, rows
 
 
+def fused_scan_inputs(torch, gen, dev, B, S, di, st):
+    """A Mamba layer's scan inputs, f32: dt after a softplus, A =
+    -exp(A_log), u = dt x1, Bc, C, h0."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    dt = 0.005 + 0.5 * torch.rand(B, S, di, generator=gen, **f32)
+    A = -torch.arange(1, st + 1, **f32) * (
+        0.5 + torch.rand(di, st, generator=gen, **f32))
+    u = dt * torch.randn(B, S, di, generator=gen, **f32)
+    return (dt, A, u, randn(torch, gen, dev, B, S, st),
+            randn(torch, gen, dev, B, S, st),
+            randn(torch, gen, dev, B, di, st, scale=0.1))
+
+
+def phase_scan_fused(torch, dev):
+    """5b. K3's fused mode against its (a, b) mode on the a and b the
+    model's own ops build (``ops._tail``): h_last and y bit for bit (the
+    fused mode keeps the (a, b) mode's readout order).  At the timed
+    shapes: the fused mode, the (a, b) mode and the replaced path (the
+    tail's ops, then the (a, b) mode), in turns, beside the fused mode's
+    bound.  Returns (max |err|, timed rows)."""
+    from repro_torch.kernels.mamba_scan import mamba_scan as ms_k
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan import ref as ms_ref
+    print("phase 5b: K3's fused mode against its (a, b) mode")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(51)
+    max_err, rows = 0.0, []
+    for label, B, S, di, st, timed in FUSED_CASES:
+        args = fused_scan_inputs(torch, gen, dev, B, S, di, st)
+        y, h = ms_ops.selective_scan(*args)
+        a, b = ms_ops._tail(*args[:4])
+        ya, ha = ms_ops.scan(a, b, *args[4:])
+        torch.cuda.synchronize()
+        same = [torch.equal(g.view(torch.int32), w.view(torch.int32))
+                for g, w in ((y, ya), (h, ha))]
+        err = max(float((y - ya).abs().max()), float((h - ha).abs().max()))
+        check(all(same), f"{label}: the fused mode differs from the (a, b) "
+              f"mode (y, h_last bitwise {same}, max |err| {err:.3e})")
+        max_err = max(max_err, err)
+        line = f"  {label}: y and h_last bit for bit"
+        if timed:
+            tail_args = args
+
+            def replaced():
+                return ms_ops.scan(*ms_ops._tail(*tail_args[:4]),
+                                   *tail_args[4:])
+            # fused, (a, b), replaced, plain, fused: in turns on one card
+            t_f = cuda_ms(torch, lambda: ms_ops.selective_scan(*args))
+            t_ab = cuda_ms(torch, lambda: ms_ops.scan(a, b, *args[4:]))
+            t_p = cuda_ms(torch, lambda: ms_ref.scan(a, b, *args[4:]),
+                          PLAIN_SCAN_REPS)
+            del a, b
+            t_old = cuda_ms(torch, replaced)
+            t_f = min(t_f, cuda_ms(torch,
+                                   lambda: ms_ops.selective_scan(*args)))
+            bound = fused_scan_bound(B, S, di, st)
+            bdi, bs = ms_ops.resolve_fused_blocks(S, di, st, dev, None, None)
+            nrows = bdi or ms_k.balanced_rows(B, di, st, bs, sms)
+            rows.append({"shape": label, "B": B, "S": S, "di": di, "st": st,
+                         "rows": nrows, "bs": bs, "ms": t_f, "ab_ms": t_ab,
+                         "replaced_ms": t_old, "plain_ms": t_p,
+                         "library_ms": None, **bound})
+            line += (f"; fused {t_f:.4f} ms ({-(-di // nrows) * B} blocks of "
+                     f"{nrows} rows, {bs}-step chunks), (a, b) mode "
+                     f"{t_ab:.4f} ms, replaced path {t_old:.4f} ms, plain "
+                     f"scan {t_p:.4f} ms, bound "
+                     f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                     f"{100 * bound['bound_ms'] / t_f:.2f} % of it")
+        print(line)
+        del args, y, h, ya, ha
+    torch.cuda.empty_cache()
+    return max_err, rows
+
+
 def phase_attention(torch, dev):
     """6. K2 against its plain version (2e-4 for f32, 5e-2 for bf16, the
     reference's tolerances), timed at the configs' widths beside
@@ -830,19 +937,23 @@ def phase_autotune(torch, dev, compare_kmeans):
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.kernels.mamba_scan import ref as ms_ref
     print("phase 7: the autotuner entry point, autotune.main per family")
-    counters = {"flash_attention": fa_ops, "mamba_scan": ms_ops,
-                "kmeans": km_ops}
+    # K3's LAUNCHES counts both of its modes; FUSED_LAUNCHES the fused one
+    counters = {
+        "flash_attention": lambda: fa_ops.LAUNCHES,
+        "mamba_scan": lambda: ms_ops.LAUNCHES - ms_ops.FUSED_LAUNCHES,
+        "mamba_scan_fused": lambda: ms_ops.FUSED_LAUNCHES,
+        "kmeans": lambda: km_ops.LAUNCHES}
     argv = {fam: [fam, "--shapes", json.dumps(shape), "--reps", "5"]
             for fam, shape in TUNE_SHAPES.items()}
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    fa_ops.LAUNCHES = ms_ops.LAUNCHES = ms_ops.FUSED_LAUNCHES = 0
+    km_ops.LAUNCHES = 0
     recs, walls = {}, {}
     for fam in TUNE_SHAPES:
         t0 = time.perf_counter()
         recs[fam] = autotune.main(argv[fam])[0]
         torch.cuda.synchronize()
         walls[fam] = time.perf_counter() - t0
-    launches = {fam: mod.LAUNCHES for fam, mod in counters.items()}
+    launches = {fam: count() for fam, count in counters.items()}
     for fam, rec in recs.items():
         check(launches[fam] > 0 and rec["trials"] > 0 and not rec["cached"],
               f"{fam}: the tuner ran {rec['trials']} trials and "
@@ -860,7 +971,7 @@ def phase_autotune(torch, dev, compare_kmeans):
         check(again["cached"] and again["trials"] == 0
               and again["config"] == recs[fam]["config"],
               f"{fam}: the second call was not a cache hit")
-    check({fam: mod.LAUNCHES for fam, mod in counters.items()} == launches,
+    check({fam: count() for fam, count in counters.items()} == launches,
           "a cache hit launched a kernel")
     f32 = torch.float32
     fs, ms, ks = (TUNE_SHAPES[f] for f in ("flash_attention", "mamba_scan",
@@ -870,6 +981,10 @@ def phase_autotune(torch, dev, compare_kmeans):
             fs["S_q"], fs["S_k"], fs["hd"], f32, dev, None, None),
         "mamba_scan": ms_ops.resolve_blocks(ms["S"], ms["di"], ms["st"], f32,
                                             dev, None, None),
+        "mamba_scan_fused": ms_ops.resolve_fused_blocks(
+            TUNE_SHAPES["mamba_scan_fused"]["S"],
+            TUNE_SHAPES["mamba_scan_fused"]["di"],
+            TUNE_SHAPES["mamba_scan_fused"]["st"], dev, None, None),
         "kmeans": km_ops.resolve_blocks(ks["n"], ks["k"], ks["d"], f32, dev,
                                         None, None)}
     for fam, got in resolved.items():
@@ -890,11 +1005,22 @@ def phase_autotune(torch, dev, compare_kmeans):
     (y, h), (yr, hr) = ms_ops.scan(*args), ms_ref.scan(*args)
     err_s = max(held(torch, y, yr, 1e-4, "tuned scan y"),
                 held(torch, h, hr, 1e-4, "tuned scan h_last"))
+    del args, y, h, yr, hr
+    fz = TUNE_SHAPES["mamba_scan_fused"]
+    args = fused_scan_inputs(torch, gen, dev, fz["B"], fz["S"], fz["di"],
+                             fz["st"])
+    got = ms_ops.selective_scan(*args)
+    want = ms_ops.scan(*ms_ops._tail(*args[:4]), *args[4:])
+    check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+              for g, w in zip(got, want)),
+          "the fused mode at its tuned blocks differs from the (a, b) mode")
+    del args, got, want
     p = torch.randn(ks["n"], ks["d"], generator=gen, device=dev)
     c = torch.randn(ks["k"], ks["d"], generator=gen, device=dev)
     err_k = compare_kmeans(p, c, "tuned kmeans")
     print(f"  at the tuned blocks: attention |err| {err:.3e}, scan |err| "
-          f"{err_s:.3e}, kmeans |err| {err_k:.3e}")
+          f"{err_s:.3e}, the fused scan bit for bit, kmeans |err| "
+          f"{err_k:.3e}")
     # 5. K1 gives bitwise the same result at every candidate block size
     base = km_ops.assign(p, c, **autotune.DEFAULTS["kmeans"])
     cands = autotune.candidates_kmeans(ks["n"], ks["k"], ks["d"])
@@ -2477,12 +2603,14 @@ def phase_train(torch, dev, card: str) -> dict:
     base_gb = torch.cuda.memory_allocated(dev) / 1e9
     # phase 13c's window
     ms_ops.LAUNCHES = ms_ops.SSM_BWD_LAUNCHES = ms_ops.BWD_LAUNCHES = 0
+    ms_ops.FUSED_LAUNCHES = 0
     out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 microbatches=TRAIN_MICROBATCHES, lr=TRAIN_LR,
                 warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
                 log_every=1, device=dev)
     torch.cuda.synchronize()
     launches = (ms_ops.LAUNCHES, ms_ops.SSM_BWD_LAUNCHES, ms_ops.BWD_LAUNCHES)
+    fused_launches = ms_ops.FUSED_LAUNCHES
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     hist, trainer = out["history"], out["trainer"]
     from repro_torch.sharding import parallel
@@ -2508,6 +2636,9 @@ def phase_train(torch, dev, card: str) -> dict:
           f"phase 13c launched K3 {launches[0]}, the fused backward "
           f"{launches[1]} and K3-bwd {launches[2]} times, want {per_step} a "
           "step")
+    check(fused_launches == launches[0],
+          f"phase 13c launched K3 {launches[0]} times, {fused_launches} of "
+          f"them in its fused mode, want all {per_step[0]} a step")
     losses = [h["loss"] for h in hist]
     check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
               for h in hist), f"non-finite loss or grad_norm: {hist}")
@@ -2520,7 +2651,7 @@ def phase_train(torch, dev, card: str) -> dict:
           f"step 0 {1e3 * hist[0]['step_s']:.1f} ms), "
           f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
           f"{peak_gb:.2f} GB ({base_gb:.2f} GB held before); K3 "
-          f"{per_step[0]}, the fused backward "
+          f"{per_step[0]} (all fused), the fused backward "
           f"{per_step[1]} and K3-bwd {per_step[2]} launches a step [{card}]")
     prof = _device_profile(torch, lambda: trainer.run(
         TRAIN_STEPS + 1, log_every=0))
@@ -2544,7 +2675,8 @@ def phase_train(torch, dev, card: str) -> dict:
                                                 for h in hist],
             "tokens_per_s": tokens / step_ms * 1e3, "peak_memory_gb": peak_gb,
             "memory_before_gb": base_gb,
-            "k3_launches": launches[0], "ssm_bwd_launches": launches[1],
+            "k3_launches": launches[0], "k3_fused_launches": fused_launches,
+            "ssm_bwd_launches": launches[1],
             "k3_bwd_launches": launches[2], "profile": prof,
             "checkpoint": ckpt, "resume": resume}
 
@@ -4133,6 +4265,7 @@ def run(torch) -> int:
     print(f"  phases 8-10: {phases_s:.3f} s wall")
 
     scan_err, scan_rows = phase_scan(torch, dev)
+    fused_err, fused_rows = phase_scan_fused(torch, dev)
     attn_err, attn_rows = phase_attention(torch, dev)
     tuned_launches, tuned = phase_autotune(
         torch, dev, lambda p, c, label: compare_assign(torch, ops, ref, p, c,
@@ -4255,6 +4388,16 @@ def run(torch) -> int:
         "launches_save_tp_out": save_tp["launches"][0],
         "launches_dryrun": dry_launches[0],
         "launches_serve_sharded": sharded_launches}, kernel_entry(
+        "mamba_scan_fused",
+        "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+        "src/repro/kernels/mamba_scan/mamba_scan.py:51 with "
+        "src/repro/models/layers/mamba.py:46 (_ssm_inputs)",
+        training["k3_fused_launches"], fused_err, fused_rows,
+        library=False) | {
+        "launches_autotune": tuned_launches["mamba_scan_fused"],
+        "ab_ms": sum(r["ab_ms"] for r in fused_rows),
+        "replaced_ms": sum(r["replaced_ms"] for r in fused_rows)},
+        kernel_entry(
         "mamba_scan_bwd",
         "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu",
         "src/repro/models/layers/mamba.py:62", training["k3_bwd_launches"],

@@ -38,7 +38,7 @@ from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.kmeans import kmeans as km_kernel
 from repro_torch.kernels.mamba_scan import mamba_scan as ms_kernel
 
-KERNELS = ("flash_attention", "kmeans", "mamba_scan")
+KERNELS = ("flash_attention", "kmeans", "mamba_scan", "mamba_scan_fused")
 
 # the shipped block sizes — the fallback when the registry has no entry,
 # and the baseline every speedup is reported against
@@ -58,6 +58,13 @@ DEFAULTS: Dict[str, Dict[str, int]] = {
     # Hymba-1.5B width (di 3200), so all are resident at once; 8 steps
     # of loads (96 bytes a lane) in flight ahead of the recurrence
     "mamba_scan": {"bdi": 8, "bs": 8},
+    # K3's fused mode (dt, u, Bc, C in; a and b formed in registers):
+    # bdi 0 takes the rows that spread the blocks evenly over the SMs
+    # (mamba_scan.balanced_rows: 100 rows of 4 lanes, 128 blocks of 416
+    # threads at Hymba-1.5B's training shape, 4 x 3200); chunks of 64
+    # steps staged ahead (116 KB).  Fastest of candidates_mamba_fused's
+    # grid at that shape and at Falcon-Mamba-7B's on an H100
+    "mamba_scan_fused": {"bdi": 0, "bs": 64},
 }
 
 # shared memory a block may use: 48 KB without opt-in; up to 227 KB
@@ -72,6 +79,7 @@ KEY_DIMS: Dict[str, Tuple[str, ...]] = {
     "flash_attention": ("S_q", "S_k", "hd"),
     "kmeans": ("n", "k", "d"),
     "mamba_scan": ("S", "di", "st"),
+    "mamba_scan_fused": ("S", "di", "st"),
 }
 
 # candidate block sizes: the sizes each kernel is built for
@@ -80,6 +88,7 @@ _FLASH_BK = fa_kernel.BK_BUILT           # keys per tile, instantiated
 _KMEANS_BN = (32, 64, 128, 256, 512)     # threads per block, whole warps
 _KMEANS_BK = (32, 64, 128, 256, 512, 1024)     # centroids per tile
 _MAMBA_BDI = (1, 2, 4, 8, 16, 32)        # d_inner rows per block
+_FUSED_BDI = (16, 32, 64, 128)          # the same, the fused mode's
 
 
 # --------------------------------------------------------------- snapping
@@ -272,6 +281,24 @@ def candidates_mamba(S: int, di: int, st: int) -> List[Dict[str, int]]:
     return out
 
 
+def candidates_mamba_fused(S: int, di: int, st: int
+                           ) -> List[Dict[str, int]]:
+    """(bdi, bs) grid of K3's fused mode: bdi rows of d_inner per block,
+    capped at the bucketed d_inner, or 0 (the rows that spread the blocks
+    evenly over the card); bs the steps of a staged chunk; filtered by
+    what the kernel takes (threads, shared memory)."""
+    out = [{"bdi": 0, "bs": bs} for bs in ms_kernel.FUSED_BS_BUILT]
+    seen = set()
+    for bdi_w in _FUSED_BDI:
+        for bs in ms_kernel.FUSED_BS_BUILT:
+            bdi = min(bdi_w, _bucket(di))
+            if not ms_kernel.fused_accepts(bdi, st, bs) or (bdi, bs) in seen:
+                continue
+            seen.add((bdi, bs))
+            out.append({"bdi": bdi, "bs": bs})
+    return out
+
+
 # ----------------------------------------------------------- timed trials
 BENCH_SHAPES: Dict[str, Dict[str, int]] = {
     # full widths of the repo's configs: flash at Hymba-1.5B's windowed
@@ -281,6 +308,8 @@ BENCH_SHAPES: Dict[str, Dict[str, int]] = {
                         "hd": 64, "causal": 1, "window": 2048},
     "kmeans": {"n": 10_000, "k": 5_000, "d": 3},
     "mamba_scan": {"B": 1, "S": 4096, "di": 3200, "st": 16},
+    # the fused mode at Hymba-1.5B's training microbatch (4 x 2048)
+    "mamba_scan_fused": {"B": 4, "S": 2048, "di": 3200, "st": 16},
 }
 
 
@@ -354,6 +383,23 @@ def _make_cell(kernel: str, shape: Dict[str, int], dtype: torch.dtype,
             return lambda: ms.scan(a, b, C, h0, bdi=cfg["bdi"], bs=cfg["bs"])
         return run, candidates_mamba(S, di, st)
 
+    if kernel == "mamba_scan_fused":
+        from repro_torch.kernels.mamba_scan import ops as ms
+        B, S, di, st = shape["B"], shape["S"], shape["di"], shape["st"]
+        f32 = dict(dtype=torch.float32, device=device)
+        # dt after a softplus, A = -exp(A_log) < 0, as a Mamba layer's
+        dt = 0.001 + 0.1 * torch.rand(B, S, di, generator=gen, **f32)
+        A = -torch.arange(1, st + 1, **f32).expand(di, st).contiguous()
+        u = dt * torch.randn(B, S, di, generator=gen, **f32)
+        Bc = torch.randn(B, S, st, generator=gen, **f32)
+        C = torch.randn(B, S, st, generator=gen, **f32)
+        h0 = torch.zeros(B, di, st, **f32)
+
+        def run(cfg):
+            return lambda: ms.selective_scan(dt, A, u, Bc, C, h0,
+                                             bdi=cfg["bdi"], bs=cfg["bs"])
+        return run, candidates_mamba_fused(S, di, st)
+
     raise ValueError(f"unknown kernel {kernel!r}; valid: {KERNELS}")
 
 
@@ -369,6 +415,8 @@ def autotune(kernel: str, shape: Optional[Dict[str, int]] = None, *,
     ``force`` — re-timing on every process start would defeat the cache.
     """
     device = torch.device(device)
+    if kernel == "mamba_scan_fused":
+        dtype = torch.float32           # the fused mode takes f32 alone
     shape = {**BENCH_SHAPES[kernel], **(shape or {})}
     # `registry or ...` would be wrong here: an EMPTY Registry is falsy
     reg = registry if registry is not None else default_registry()

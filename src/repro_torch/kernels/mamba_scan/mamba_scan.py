@@ -9,6 +9,12 @@ compiled with nvcc for sm_90a at first use and bound with ctypes.
 :func:`scan_cuda` launches it on PyTorch's current stream; the public
 wrapper with its checks is :func:`..ops.scan`.
 
+The same source holds K3's fused mode: it reads the layer's own inputs
+(dt, A, u, Bc, C, h0) and forms ``a = exp(dt A)`` and ``b = u Bc`` in
+registers, :data:`FUSED_STATES` states a lane, dt, u, Bc and C staged a
+chunk of steps ahead in shared memory.  :func:`scan_fused_cuda`
+launches it; the public wrapper is :func:`..ops.selective_scan`.
+
 ``csrc/mamba_scan_bwd.cu`` is its backward (K3-bwd): h checkpointed every
 :data:`BWD_CHUNK` steps by a forward walk, each chunk rebuilt in
 registers and walked backwards, dC reduced over d_inner in block order
@@ -26,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -42,6 +49,9 @@ BWD_CHUNK = 16          # MSB_T: steps between the backward's h checkpoints
 SSM_BWD_SOURCE = SOURCE.with_name("mamba_ssm_bwd.cu")
 SSM_CHUNK = 16          # MSS_T: steps between the fused backward's checkpoints
 SSM_THREADS = 128       # MSS_THREADS: threads a block
+FUSED_STATES = 4        # MSF_P: states a lane in the fused mode, at most
+FUSED_BS_BUILT = (16, 32, 64)   # the steps a staged chunk holds (bs)
+FUSED_MAX_SMEM = 232_448        # MSF_MAX_SMEM: a block's shared memory
 
 
 def state_lanes(st: int) -> int:
@@ -57,6 +67,48 @@ def threads(bdi: int, st: int) -> int:
     return -(-bdi * state_lanes(st) // 32) * 32
 
 
+def fused_lanes(st: int) -> Tuple[int, int]:
+    """(lanes a row, states a lane) of the fused mode: the row's
+    state_lanes(st) states, at most FUSED_STATES to a lane."""
+    stp = state_lanes(st)
+    p = min(FUSED_STATES, stp)
+    return stp // p, p
+
+
+def fused_threads(bdi: int, st: int) -> int:
+    """Threads of one fused-mode block of bdi rows: whole warps."""
+    return -(-bdi * fused_lanes(st)[0] // 32) * 32
+
+
+def fused_smem_bytes(bdi: int, st: int, bs: int) -> int:
+    """Shared memory of one fused-mode block: two stages of dt and u
+    (bs x bdi) and Bc and C (bs x state_lanes(st)), f32."""
+    return 2 * 4 * (2 * bs * bdi + 2 * bs * state_lanes(st))
+
+
+def fused_accepts(bdi: int, st: int, bs: int) -> bool:
+    """Whether the fused mode is built for bdi rows a block and chunks of
+    bs steps at state width st."""
+    return (isinstance(bdi, int) and 1 <= bdi <= MAX_THREADS
+            and bs in FUSED_BS_BUILT and 1 <= st <= MAX_ST
+            and fused_threads(bdi, st) <= MAX_THREADS
+            and fused_smem_bytes(bdi, st, bs) <= FUSED_MAX_SMEM)
+
+
+def balanced_rows(B: int, di: int, st: int, bs: int, sms: int) -> int:
+    """Rows a fused-mode block that spread the B x di rows evenly over
+    the card's `sms` SMs, one block an SM as far as a block holds them:
+    ceil(B di / sms), rounded up to a multiple of 4 (whole 16-byte
+    copies), at most the rows a block of MAX_THREADS threads or
+    FUSED_MAX_SMEM bytes holds, and at most di rounded up to 4."""
+    stp = state_lanes(st)
+    cap = min(MAX_THREADS // fused_lanes(st)[0],
+              (FUSED_MAX_SMEM // 8 - 2 * bs * stp) // (2 * bs))
+    rows = -(-B * di // sms)
+    rows = -(-rows // 4) * 4
+    return max(1, min(rows, cap // 4 * 4, -(-di // 4) * 4))
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared (built
@@ -66,14 +118,20 @@ def library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    consts = ("mamba_scan_max_threads", "mamba_scan_max_st")
+    fn = lib.mamba_scan_fused_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    consts = ("mamba_scan_max_threads", "mamba_scan_max_st",
+              "mamba_scan_fused_states")
     for name in consts:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
-    if tuple(getattr(lib, name)() for name in consts) != (MAX_THREADS,
-                                                          MAX_ST):
+    if tuple(getattr(lib, name)() for name in consts) != (
+            MAX_THREADS, MAX_ST, FUSED_STATES):
         raise RuntimeError("mamba_scan.cu constants disagree with "
-                           f"MAX_THREADS={MAX_THREADS}, MAX_ST={MAX_ST}")
+                           f"MAX_THREADS={MAX_THREADS}, MAX_ST={MAX_ST}, "
+                           f"FUSED_STATES={FUSED_STATES}")
     return lib
 
 
@@ -96,6 +154,28 @@ def scan_cuda(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
         raise RuntimeError(f"mamba_scan_fwd launch failed: CUDA error {err} "
                            f"(B={B}, S={S}, di={di}, st={st}, bdi={bdi}, "
                            f"bs={bs})")
+
+
+def scan_fused_cuda(dt, A, u, Bc, C, h0, y, h_last, *, bdi: int,
+                    bs: int) -> None:
+    """Launch the fused mode: contiguous f32 dt, u (B, S, di), A
+    (di, st), Bc, C (B, S, st), h0 (B, di, st) on one CUDA device -> y
+    (B, S, di) and h_last (B, di, st), f32; bdi rows a block, bs steps a
+    staged chunk.  The caller has validated the arguments.  Raises if the
+    launch is refused."""
+    lib = library()
+    B, S, di = dt.shape
+    st = A.shape[1]
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream(dt.device).cuda_stream
+        err = lib.mamba_scan_fused_fwd(
+            dt.data_ptr(), A.data_ptr(), u.data_ptr(), Bc.data_ptr(),
+            C.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+            B, S, di, st, bdi, bs, stream)
+    if err != 0:
+        raise RuntimeError(f"mamba_scan_fused_fwd launch failed: CUDA error "
+                           f"{err} (B={B}, S={S}, di={di}, st={st}, "
+                           f"bdi={bdi}, bs={bs})")
 
 
 def bwd_rows(st: int) -> int:

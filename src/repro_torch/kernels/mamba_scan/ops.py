@@ -5,18 +5,27 @@ For a CUDA tensor :func:`scan` launches the hand-written kernel
 it runs the plain version (:mod:`.ref`), which is what the CPU tests
 reach.  ``LAUNCHES`` counts kernel launches and nothing else.
 
+:func:`selective_scan` is the same scan from the layer's own inputs
+(dt, A, u, Bc, C, h0): on the card K3's fused mode forms ``a = exp(dt
+A)`` and ``b = u Bc`` in registers, so no (B, S, d_inner, d_state)
+tensor is made; on the CPU the model's own ops build a and b for the
+plain scan.  ``LAUNCHES`` counts its launches too, and
+``FUSED_LAUNCHES`` counts them alone: ``FUSED_LAUNCHES / LAUNCHES`` is
+the share of K3 launches that took the fused inputs.
+
 :func:`scan_backward` is the same for the backward (K3-bwd), counted in
 ``BWD_LAUNCHES``.  :class:`Scan` joins the two as a
 ``torch.autograd.Function``: the gradient of the op-level scan.
 
 :func:`ssm_backward` is the fused backward of the scan and its input
 tail ``a = exp(dt A)``, ``b = u Bc``, counted in ``SSM_BWD_LAUNCHES``.
-:class:`SelectiveScan` takes (dt, A, u, Bc, C, h0), builds a and b, runs
-:func:`scan` and drops them; its backward is :func:`ssm_backward`, so no
-(B, S, d_inner, d_state) tensor is kept for or made by the backward.  It
-is what the model calls.  Under ``no_grad`` or ``inference_mode`` either
-Function's ``apply`` runs the forward alone and records nothing, so
-inference launches exactly the forward kernel.
+:class:`SelectiveScan` takes (dt, A, u, Bc, C, h0) and runs
+:func:`selective_scan`; its backward is :func:`ssm_backward`, so on the
+card no (B, S, d_inner, d_state) tensor is made by the forward or kept
+for or made by the backward.  It is what the model calls.  Under
+``no_grad`` or ``inference_mode`` either Function's ``apply`` runs the
+forward alone and records nothing, so inference launches exactly the
+forward kernel.
 
 Fake tensors (``FakeTensorMode``, the dry-run's trace) meet a shape rule
 in each wrapper, ahead of the device checks: outputs of the kernel's
@@ -30,6 +39,7 @@ counter sees the scan as ``roofline.analytic`` counts it.
 """
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Optional, Tuple
 
@@ -43,6 +53,7 @@ from . import mamba_scan as kernel
 from . import ref
 
 LAUNCHES = 0
+FUSED_LAUNCHES = 0
 BWD_LAUNCHES = 0
 SSM_BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
@@ -138,6 +149,111 @@ def scan(a: torch.Tensor, b: torch.Tensor, C: torch.Tensor,
     global LAUNCHES
     with _count_lock:
         LAUNCHES += 1
+    return y, h_last
+
+
+def _tail(dt: torch.Tensor, A: torch.Tensor, u: torch.Tensor,
+          Bc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan's a = exp(dt * A) and b = u * Bc, (B,S,di,st) f32, with
+    the model's own ops (those of ``mamba._ssm_inputs``)."""
+    a = torch.exp_(dt[..., None] * A)
+    return a, u[..., None] * Bc[:, :, None, :]
+
+
+def _fused_takes(bdi, st: int, bs) -> bool:
+    """A registry entry the fused mode can run: bdi rows a block, or 0
+    for :func:`kernel.balanced_rows`."""
+    return (bdi == 0 and bs in kernel.FUSED_BS_BUILT) or \
+        kernel.fused_accepts(bdi, st, bs)
+
+
+def resolve_fused_blocks(S: int, di: int, st: int, device,
+                         bdi: Optional[int], bs: Optional[int]
+                         ) -> Tuple[int, int]:
+    """Blocks of K3's fused mode: explicit args win, else the autotune
+    registry's ``mamba_scan_fused`` entry (one the kernel does not take
+    is a miss), else :data:`autotune.DEFAULTS`.  Blocks tuned for the
+    (a, b) mode are never read here.  bdi 0 stands for the rows that
+    spread the blocks evenly over the card (``kernel.balanced_rows``),
+    which :func:`selective_scan` works out from the batch."""
+    if bdi is None or bs is None:
+        tuned = autotune.lookup("mamba_scan_fused",
+                                {"S": S, "di": di, "st": st},
+                                torch.float32, device)
+        if tuned is None or not _fused_takes(tuned.get("bdi"), st,
+                                             tuned.get("bs")):
+            tuned = autotune.DEFAULTS["mamba_scan_fused"]
+        bdi = bdi if bdi is not None else tuned["bdi"]
+        bs = bs if bs is not None else tuned["bs"]
+    return bdi, bs
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def selective_scan(dt: torch.Tensor, A: torch.Tensor, u: torch.Tensor,
+                   Bc: torch.Tensor, C: torch.Tensor, h0: torch.Tensor, *,
+                   bdi: Optional[int] = None, bs: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`scan` on a = exp(dt * A), b = u * Bc, from dt, u (B,S,di),
+    A (di,st), Bc, C (B,S,st), h0 (B,di,st), all f32 -> (y (B,S,di) f32,
+    h_last (B,di,st) f32).  On the card K3's fused mode forms a and b in
+    registers (h_last, and y, those of :func:`scan` on the materialized a
+    and b bit for bit); on the CPU the model's own ops build them for
+    the plain scan."""
+    _mark(dt, C, False)
+    if isinstance(dt, FakeTensor):                 # shape rule only
+        B, S, di = dt.shape
+        f32 = torch.float32
+        return (dt.new_empty((B, S, di), dtype=f32),
+                dt.new_empty((B, di, A.shape[-1]), dtype=f32))
+    if dt.device.type == "cpu":
+        return ref.scan(*_tail(dt, A, u, Bc), C, h0)
+    if dt.device.type != "cuda":
+        raise ValueError(f"selective_scan: unsupported device {dt.device}")
+    if dt.ndim != 3 or A.ndim != 2:
+        raise ValueError(f"selective_scan: dt {tuple(dt.shape)} and A "
+                         f"{tuple(A.shape)}, want (B, S, di) and (di, st)")
+    B, S, di = dt.shape
+    st = A.shape[1]
+    want = {"A": (di, st), "u": (B, S, di), "Bc": (B, S, st),
+            "C": (B, S, st), "h0": (B, di, st)}
+    named = (("A", A), ("u", u), ("Bc", Bc), ("C", C), ("h0", h0))
+    for name, t in named:
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"selective_scan: {name} has shape "
+                             f"{tuple(t.shape)}, want {want[name]}")
+    for t in (dt, A, u, Bc, C, h0):
+        if t.device != dt.device:
+            raise ValueError(f"selective_scan: inputs on {t.device} and "
+                             f"{dt.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"selective_scan: inputs must be f32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("selective_scan: inputs must be contiguous")
+    if not 1 <= st <= kernel.MAX_ST:
+        raise ValueError(f"selective_scan: st={st} outside "
+                         f"1..{kernel.MAX_ST}, the state widths the kernel "
+                         "is built for")
+    if min(B, S, di) < 1 or B > 65535 or max(S, di) >= 2**31:
+        raise ValueError(f"selective_scan: shape {(B, S, di, st)} out of "
+                         "range")
+    bdi, bs = resolve_fused_blocks(S, di, st, dt.device, bdi, bs)
+    if bdi == 0 and bs in kernel.FUSED_BS_BUILT:
+        bdi = kernel.balanced_rows(B, di, st, bs, _sm_count(dt.device))
+    if not kernel.fused_accepts(bdi, st, bs):
+        raise ValueError(f"selective_scan: the fused mode is not built for "
+                         f"bdi={bdi}, bs={bs} at st={st}")
+    y = torch.empty((B, S, di), dtype=torch.float32, device=dt.device)
+    h_last = torch.empty((B, di, st), dtype=torch.float32, device=dt.device)
+    kernel.scan_fused_cuda(dt, A, u, Bc, C, h0, y, h_last, bdi=bdi, bs=bs)
+    global LAUNCHES, FUSED_LAUNCHES
+    with _count_lock:
+        LAUNCHES += 1
+        FUSED_LAUNCHES += 1
     return y, h_last
 
 
@@ -275,19 +391,16 @@ def ssm_backward(dt: torch.Tensor, A: torch.Tensor, u: torch.Tensor,
 
 
 class SelectiveScan(torch.autograd.Function):
-    """:func:`scan` on a = exp(dt * A), b = u * Bc, with
-    :func:`ssm_backward` as its gradient.  The forward builds a and b with
-    the model's own ops (so its outputs are those of ``Scan.apply(a, b,
-    C, h0)`` bit for bit), drops them after K3 and saves only dt, A, u,
-    Bc, C and h0."""
+    """:func:`selective_scan` (:func:`scan` on a = exp(dt * A), b = u *
+    Bc), with :func:`ssm_backward` as its gradient.  Its outputs are
+    those of ``Scan.apply(a, b, C, h0)`` on the model's own a and b bit
+    for bit; it saves only dt, A, u, Bc, C and h0."""
 
     @staticmethod
     def forward(ctx, dt, A, u, Bc, C, h0):
         ctx.set_materialize_grads(False)
-        a = torch.exp_(dt[..., None] * A)                   # (B,S,di,st)
-        b = u[..., None] * Bc[:, :, None, :]
         ctx.save_for_backward(dt, A, u, Bc, C, h0)
-        return scan(a, b, C, h0)
+        return selective_scan(dt, A, u, Bc, C, h0)
 
     @staticmethod
     def backward(ctx, dy, dh_last):

@@ -5,7 +5,7 @@ recurrence as a chunked scan (``lax.scan`` over chunks of
 ``SCAN_CHUNK`` steps, an associative scan inside each) and then reads
 ``y = sum_st h * C`` out of every state.  Here the whole recurrence and
 the readout are one call of the selective-scan kernel,
-:func:`repro_torch.kernels.mamba_scan.ops.scan` (K3): on a CUDA tensor it
+:func:`repro_torch.kernels.mamba_scan.ops.selective_scan` (K3): on a CUDA tensor it
 launches the hand-written Hopper kernel, on a CPU tensor it runs the
 kernel's plain version.  K3 returns ``y`` and ``h_last`` and never
 materializes the (B, S, d_inner, d_state) states.  Decode is a one-step
@@ -15,13 +15,16 @@ The reference differentiates ``_ssm_inputs`` and its own scan with JAX
 autodiff.  Here ``mamba_forward`` hands the scan's inputs before the
 tail, (dt, A, u = dt x1, Bc, C), to
 :class:`~repro_torch.kernels.mamba_scan.ops.SelectiveScan`, an autograd
-Function that builds ``a = exp(dt A)`` and ``b = u Bc`` with the same ops
-as ``_ssm_inputs``, runs K3 and drops them.  Its backward is the fused
-backward of the scan and that tail (``ops.ssm_backward``): the
-hand-written Hopper kernel on a CUDA tensor, its plain version on a CPU
-one; it neither keeps nor makes a (B, S, d_inner, d_state) tensor.  Under
-``no_grad`` or ``inference_mode`` it runs the forward alone and records
-nothing, so serving launches K3 alone.  Decode keeps ``_ssm_inputs``.
+Function whose forward is ``ops.selective_scan``: on a CUDA tensor K3's
+fused mode, which forms ``a = exp(dt A)`` and ``b = u Bc`` in registers
+(the values ``_ssm_inputs``' ops give, bit for bit), on a CPU tensor
+those ops and the plain scan.  Its backward is the fused backward of the
+scan and that tail (``ops.ssm_backward``): the hand-written Hopper
+kernel on a CUDA tensor, its plain version on a CPU one.  On the card
+neither direction makes or keeps a (B, S, d_inner, d_state) tensor.
+Under ``no_grad`` or ``inference_mode`` it runs the forward alone and
+records nothing, so serving launches K3 alone.  Decode keeps
+``_ssm_inputs``.
 
 Under tensor parallelism (`tp`) a layer runs on the rank's ``d_inner``
 channels.  Training gathers ``in_proj`` and takes the rank's columns of
@@ -125,8 +128,9 @@ def _causal_conv(p: Params, x1: torch.Tensor) -> torch.Tensor:
 def mamba_forward(cfg, p: Params, x: torch.Tensor, tp=None,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba (train/prefill). Returns (out, decode cache).
-    The scan is one K3 call (:mod:`repro_torch.kernels.mamba_scan`), and
-    one call of the fused backward of the scan and its tail in backward.
+    The scan is one K3 call in its fused mode, on dt, A, u, Bc and C
+    (:mod:`repro_torch.kernels.mamba_scan`), and one call of the fused
+    backward of the scan and its tail in backward.
 
     With `tp` (a model-axis group) the layer runs on this rank's shard of
     the SSM channels: ``in_proj`` arrives whole (training: its x1 and z
@@ -151,8 +155,7 @@ def mamba_forward(cfg, p: Params, x: torch.Tensor, tp=None,
     chunk = min(SCAN_CHUNK, S)
     assert S % chunk == 0, (S, chunk)
     h0 = torch.zeros((B, di, st), dtype=torch.float32, device=x.device)
-    # a and b, (B, S, di, st) f32 each, live only inside the Function's
-    # forward
+    # K3 forms a and b from these in registers: no (B, S, di, st) tensor
     y, h_last = scan_ops.SelectiveScan.apply(
         dt, A, u, Bc.float().contiguous(), Cc.float().contiguous(), h0)
 

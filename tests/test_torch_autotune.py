@@ -368,3 +368,74 @@ def test_configure_is_idempotent(clean_platform, monkeypatch):
     assert os.environ["CUDA_MODULE_LOADING"] == "EAGER"
     assert not torch.backends.cudnn.allow_tf32
     assert platform.configure("cpu") == "cpu"
+
+
+# ------------------------------------------------- K3's fused mode blocks
+def test_fused_mode_has_its_own_key_and_defaults(registry_env):
+    """Blocks tuned for K3's (a, b) mode are never applied to the fused
+    mode: it reads its own ``mamba_scan_fused`` entry, else its own
+    defaults; explicit arguments still win."""
+    f32, d = torch.float32, at.DEFAULTS["mamba_scan_fused"]
+    shape = {"S": 2048, "di": 3200, "st": 16}
+    _put(registry_env, "mamba_scan", shape, {"bdi": 4, "bs": 4})
+    assert ms.resolve_blocks(2048, 3200, 16, f32, CUDA, None, None) == (4, 4)
+    assert ms.resolve_fused_blocks(2048, 3200, 16, CUDA, None, None) == \
+        (d["bdi"], d["bs"])
+    _put(registry_env, "mamba_scan_fused", shape, {"bdi": 32, "bs": 64})
+    assert ms.resolve_fused_blocks(2048, 3200, 16, CUDA, None, None) == \
+        (32, 64)
+    assert ms.resolve_fused_blocks(2048, 3200, 16, CUDA, 64, None) == \
+        (64, 64)
+    assert ms.resolve_blocks(2048, 3200, 16, f32, CUDA, None, None) == (4, 4)
+    assert at.KEY_DIMS["mamba_scan_fused"] == at.KEY_DIMS["mamba_scan"]
+
+
+@pytest.mark.parametrize("config", [{"bdi": 200, "bs": 16},
+                                    {"bdi": 16, "bs": 8},
+                                    {"bdi": 0, "bs": 4},
+                                    {"bdi": -4, "bs": 32}, {"bdi": 16}],
+                         ids=["bdi200", "bs8", "auto-bs4", "bdi-4", "no-bs"])
+def test_fused_registry_entry_the_kernel_cannot_take_is_a_miss(
+        registry_env, config):
+    """An entry the fused mode is not built for (over 512 threads, a
+    chunk it has no instance of, a negative row count, a missing key)
+    resolves to its defaults instead of raising at launch."""
+    _put(registry_env, "mamba_scan_fused", {"S": 2048, "di": 3200,
+                                            "st": 16}, config)
+    d = at.DEFAULTS["mamba_scan_fused"]
+    assert ms.resolve_fused_blocks(2048, 3200, 16, CUDA, None, None) == \
+        (d["bdi"], d["bs"])
+
+
+def test_candidates_mamba_fused_fit_the_kernel():
+    for st_ in (1, 2, 4, 5, 8, 16, 32):
+        cands = at.candidates_mamba_fused(2048, 3200, st_)
+        assert at.DEFAULTS["mamba_scan_fused"] in cands
+        for c in cands:
+            if c["bdi"] == 0:           # balanced rows, worked out later
+                assert c["bs"] in ms_ker.FUSED_BS_BUILT
+                continue
+            assert ms_ker.fused_accepts(c["bdi"], st_, c["bs"])
+            assert ms_ker.fused_threads(c["bdi"], st_) <= ms_ker.MAX_THREADS
+            assert ms_ker.fused_smem_bytes(c["bdi"], st_, c["bs"]) <= \
+                ms_ker.FUSED_MAX_SMEM
+    # rows capped at the bucketed d_inner
+    assert max(c["bdi"] for c in at.candidates_mamba_fused(64, 6, 16)) == 8
+
+
+def test_fused_family_tunes_into_its_own_key(registry_env):
+    """``autotune("mamba_scan_fused")`` on the CPU (the plain versions):
+    its key is the fused family's, bucketed over (S, di, st), f32 even
+    when asked for bf16, and the fused wrapper resolves the winner."""
+    shape = {"B": 1, "S": 24, "di": 6, "st": 4}
+    rec = at.autotune("mamba_scan_fused", shape, device="cpu", reps=1,
+                      max_candidates=3, dtype=torch.bfloat16)
+    assert not rec["cached"] and rec["trials"] > 0
+    kernel, bucket, backend, dtype = rec["key"].split("|")
+    assert (kernel, backend, dtype) == ("mamba_scan_fused", "cpu+plain",
+                                        "float32")
+    assert bucket == at.shape_bucket("mamba_scan_fused",
+                                     {"S": 24, "di": 6, "st": 4})
+    assert ms.resolve_fused_blocks(24, 6, 4, torch.device("cpu"), None,
+                                   None) == tuple(rec["config"].values())
+    assert "mamba_scan_fused" in at.KERNELS

@@ -43,6 +43,7 @@ def counted(monkeypatch):
             return _real(*a, **k)
         monkeypatch.setattr(ref, name, wrapped)
     monkeypatch.setattr(ops, "LAUNCHES", 0)
+    monkeypatch.setattr(ops, "FUSED_LAUNCHES", 0)
     monkeypatch.setattr(ops, "BWD_LAUNCHES", 0)
     monkeypatch.setattr(ops, "SSM_BWD_LAUNCHES", 0)
     return calls
@@ -141,3 +142,49 @@ def test_meta_tensors_still_raise():
         ops.scan(a, b, C, h0)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.scan_backward(a, b, C, h0, None, None)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_selective_scan_under_fake_tensors_is_scans_shape_rule(device,
+                                                               counted):
+    """K3's fused mode on fake tensors gives what scan gives on the
+    materialized a and b: shapes, dtypes and device; no launch (either
+    count) and no plain version."""
+    di, st = 8, 4
+    with FakeTensorMode():
+        dt, u = (torch.empty(B, S, di, device=device) for _ in range(2))
+        A = torch.empty(di, st, device=device)
+        Bc, C = (torch.empty(B, S, st, device=device) for _ in range(2))
+        h0 = torch.empty(B, di, st, device=device)
+        got = ops.selective_scan(dt, A, u, Bc, C, h0)
+        a, b = (torch.empty(B, S, di, st, device=device) for _ in range(2))
+        want = ops.scan(a, b, C, h0)
+    for g, w in zip(got, want):
+        assert isinstance(g, FakeTensor)
+        assert (g.shape, g.dtype, g.device) == (w.shape, w.dtype, w.device)
+    assert ops.FUSED_LAUNCHES == 0
+    assert _launches() == (0, 0, 0) and sum(counted.values()) == 0
+
+
+def test_flop_counter_counts_selective_scan_as_scan():
+    """The cost mark of the fused mode (issued with dt's (B, S, di)) is
+    the mark of scan on the materialized a and b, on fake tensors and on
+    real CPU ones."""
+    di, st = 8, 4
+
+    def counts(make):
+        with FlopCounterMode(display=False) as fused:
+            ops.selective_scan(*make(B, S, di), *make(di, st),
+                               *make(B, S, di), *make(B, S, st),
+                               *make(B, S, st), *make(B, di, st))
+        with FlopCounterMode(display=False) as ab:
+            ops.scan(*make(B, S, di, st), *make(B, S, di, st),
+                     *make(B, S, st), *make(B, di, st))
+        return fused.get_total_flops(), ab.get_total_flops()
+
+    with FakeTensorMode():
+        f, a = counts(lambda *s: (torch.empty(*s),))
+    assert f == a == 17 * B * S * di * st
+    g = torch.Generator().manual_seed(0)
+    f, a = counts(lambda *s: (torch.rand(*s, generator=g),))
+    assert f == a == 17 * B * S * di * st

@@ -97,3 +97,106 @@ def test_block_threads_and_defaults():
     d = tat.DEFAULTS["mamba_scan"]
     assert d["bs"] in tker.BS_BUILT
     assert tker.threads(d["bdi"], tker.MAX_ST) <= tker.MAX_THREADS
+
+
+# ------------------------------------------------ K3's fused mode, CPU path
+FUSED_SHAPES = [(1, 32, 8, 4), (2, 64, 16, 8), (1, 128, 32, 16),
+                (1, 40, 8, 2), (2, 37, 13, 1), (1, 45, 7, 5),
+                (3, 21, 9, 16), (1, 19, 11, 32)]
+
+
+def _fused_inputs(B, S, di, st_, seed):
+    """A Mamba layer's scan inputs as torch f32: dt after a softplus,
+    A = -exp(A_log) < 0, u = dt x1, Bc, C and h0."""
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.005, 0.5, (B, S, di))
+    arrs = [dt, -np.arange(1, st_ + 1) * rng.uniform(0.5, 1.5, (di, st_)),
+            dt * rng.normal(size=(B, S, di)), rng.normal(size=(B, S, st_)),
+            rng.normal(size=(B, S, st_)), rng.normal(size=(B, di, st_)) * 0.1]
+    return [torch.from_numpy(a.astype(np.float32)) for a in arrs]
+
+
+@pytest.mark.parametrize("B,S,di,st_", FUSED_SHAPES)
+def test_selective_scan_cpu_is_the_tail_then_the_plain_scan(B, S, di, st_):
+    """On the CPU: exp(dt A) and u Bc with the model's ops, then the
+    plain scan, bit for bit; and the reference's scan within 1e-4."""
+    dt, A, u, Bc, C, h0 = _fused_inputs(B, S, di, st_, seed=S * di + st_)
+    got = tops.selective_scan(dt, A, u, Bc, C, h0)
+    a = torch.exp(dt[..., None] * A)
+    b = u[..., None] * Bc[:, :, None, :]
+    want = tref.scan(a, b, C, h0)
+    assert got[0].shape == (B, S, di) and got[1].shape == (B, di, st_)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    js = [jnp.asarray(t.numpy()) for t in (a, b, C, h0)]
+    _close(got, jref.scan(*js))
+
+
+def test_selective_scan_on_the_cpu_counts_no_launch(monkeypatch):
+    monkeypatch.setattr(tops, "LAUNCHES", 0)
+    monkeypatch.setattr(tops, "FUSED_LAUNCHES", 0)
+    args = _fused_inputs(1, 16, 4, 4, seed=6)
+    tops.selective_scan(*args)
+    tops.selective_scan(*args, bdi=8, bs=16)
+    tops.SelectiveScan.apply(*args)
+    assert (tops.LAUNCHES, tops.FUSED_LAUNCHES) == (0, 0)
+
+
+def test_selective_scan_refuses_devices_it_has_no_kernel_for():
+    dt = torch.empty((1, 4, 2), device="meta")
+    A = torch.empty((2, 4), device="meta")
+    C = torch.empty((1, 4, 4), device="meta")
+    h0 = torch.empty((1, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.selective_scan(dt, A, dt, C, C, h0)
+
+
+def test_selective_scan_function_forward_never_runs_the_ab_mode(
+        monkeypatch):
+    """SelectiveScan's forward reaches selective_scan (K3's fused mode
+    on the card), never scan on materialized a and b; with a graph and
+    without one."""
+    calls = []
+    real = tops.selective_scan
+
+    def spy(*ts, **kw):
+        calls.append(len(ts))
+        return real(*ts, **kw)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("SelectiveScan ran ops.scan")
+
+    monkeypatch.setattr(tops, "selective_scan", spy)
+    monkeypatch.setattr(tops, "scan", refuse)
+    ins = [t.requires_grad_(True) for t in _fused_inputs(2, 24, 6, 8, 7)]
+    y, h = tops.SelectiveScan.apply(*ins)
+    (y.sum() + h.sum()).backward()
+    with torch.no_grad():
+        tops.SelectiveScan.apply(*ins)
+    assert calls == [6, 6]
+    assert all(t.grad is not None for t in ins)
+
+
+def test_fused_block_layout_and_defaults():
+    # a row's states, at most 4 to a lane; a block is whole warps
+    assert [tker.fused_lanes(s) for s in (1, 2, 3, 4, 5, 8, 9, 16, 32)] == \
+        [(1, 2), (1, 2), (1, 4), (1, 4), (2, 4), (2, 4), (4, 4), (4, 4),
+         (8, 4)]
+    assert tker.fused_threads(16, 16) == 64 and tker.fused_threads(4, 4) == 32
+    assert tker.fused_smem_bytes(16, 16, 16) == 2 * 4 * (2 * 256 + 2 * 256)
+    d = tat.DEFAULTS["mamba_scan_fused"]
+    assert d["bdi"] == 0            # rows that spread the blocks evenly
+    assert tker.fused_accepts(12, 16, 16) and tker.fused_accepts(100, 16, 32)
+    assert not tker.fused_accepts(16, 16, 8)         # a chunk not built
+    assert not tker.fused_accepts(256, 32, 16)       # over 512 threads
+    assert not tker.fused_accepts(16, 33, 16)        # st over MAX_ST
+    assert not tker.fused_accepts(0, 16, 32)         # 0 is the wrapper's
+    # 132 SMs: Hymba-1.5B's training microbatch in 128 blocks of 100 rows,
+    # Falcon-Mamba-7B's width in 128 of 64, a small shape in blocks of 4
+    assert tker.balanced_rows(4, 3200, 16, 32, 132) == 100
+    assert tker.balanced_rows(1, 8192, 16, 32, 132) == 64
+    assert tker.balanced_rows(2, 50, 5, 32, 132) == 4
+    for st_ in range(1, tker.MAX_ST + 1):
+        for bs in tker.FUSED_BS_BUILT:
+            for B, di in ((1, 1), (2, 50), (4, 3200), (64, 8192)):
+                rows = tker.balanced_rows(B, di, st_, bs, 132)
+                assert tker.fused_accepts(rows, st_, bs), (B, di, st_, bs)

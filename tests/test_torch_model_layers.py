@@ -385,20 +385,22 @@ def test_mamba_forward_keeps_the_scan_chunk_rule():
 
 
 def test_mamba_forward_runs_its_scan_through_k3(monkeypatch):
-    """One call of kernels.mamba_scan.ops.scan per layer, with K3's
-    input contract: one dtype (f32), contiguous, st <= 32."""
+    """One call of kernels.mamba_scan.ops.selective_scan (K3's fused
+    mode) per layer, with its input contract: f32, contiguous, st <= 32;
+    and no call of the (a, b) mode's ops.scan."""
     _, tcfg, _, tp = _mamba()
     calls = []
-    real = scan_ops.scan
+    real = scan_ops.selective_scan
 
-    def counting(a, b, C, h0, **kw):
-        calls.append([t.dtype for t in (a, b, C, h0)]
-                     + [all(t.is_contiguous() for t in (a, b, C, h0))])
-        return real(a, b, C, h0, **kw)
+    def counting(*ts, **kw):
+        calls.append([t.dtype for t in ts]
+                     + [all(t.is_contiguous() for t in ts)])
+        return real(*ts, **kw)
 
-    monkeypatch.setattr(scan_ops, "scan", counting)
+    monkeypatch.setattr(scan_ops, "selective_scan", counting)
+    monkeypatch.setattr(scan_ops, "scan", None)
     tmamba.mamba_forward(tcfg, tp, torch.randn(2, 256, tcfg.d_model))
-    assert calls == [[torch.float32] * 4 + [True]]
+    assert calls == [[torch.float32] * 6 + [True]]
     # and a whole model: one call per SSM layer
     calls.clear()
     params = ttransformer.init_params(tcfg, torch.Generator().manual_seed(0),

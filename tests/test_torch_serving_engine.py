@@ -392,8 +392,8 @@ def test_engine_tokens_and_counts_match_the_reference(arch, monkeypatch):
     tokens per request and the same steps, admissions and decoded tokens
     as the reference engine.  Hymba's scans run K3's plain version."""
     calls = []
-    scan = ms_ops.scan
-    monkeypatch.setattr(ms_ops, "scan",
+    scan = ms_ops.selective_scan
+    monkeypatch.setattr(ms_ops, "selective_scan",
                         lambda *a, **k: calls.append(1) or scan(*a, **k))
     jcfg, tcfg, jparams, params = _params(arch, seed=3)
     prompts = _prompts(tcfg, [8 + 3 * i for i in range(5)], seed=5)

@@ -153,15 +153,15 @@ def test_no_graph_under_inference_or_no_grad():
     arrs = _inputs(1, 16, 4, 4, seed=4)
     ins = [_t(x).requires_grad_(True) for x in arrs[:6]]
     calls = []
-    real_scan = tops.scan
+    real_scan = tops.selective_scan
     try:
-        tops.scan = lambda *a: calls.append(1) or real_scan(*a)
+        tops.selective_scan = lambda *a: calls.append(1) or real_scan(*a)
         with torch.inference_mode():
             y1, h1 = tops.SelectiveScan.apply(*ins)
         with torch.no_grad():
             y2, h2 = tops.SelectiveScan.apply(*ins)
     finally:
-        tops.scan = real_scan
+        tops.selective_scan = real_scan
     assert calls == [1, 1]
     for t in (y1, h1, y2, h2):
         assert t.grad_fn is None and not t.requires_grad
