@@ -171,7 +171,16 @@ Phases (any failure raises and the script exits non-zero):
      layers, the whole model's plan) on the fake (16, 16) group, one
      subprocess a cell, side by side: 0 launches, the record's collective
      bytes a device (the all-gathers over "model" apart from the rest),
-     traced and analytic peak a device.
+     traced and analytic peak a device;
+ 19. DeepSeek-V2-Lite's drop-free MoE layer: (a) at its training cell's
+     shapes (4 x 4096 tokens, top-6 of 64 experts, 8 held, d 2048, f
+     1408, bf16) each grouped product (PyTorch's grouped GEMM) and its
+     gradients against ``torch.mm`` per segment, NaN in the dead rows of
+     its inputs, then the held experts forward and backward against a
+     loop through autograd; (b) each product timed beside its bound, the
+     plain version and ``torch.mm`` per segment, and the layer's products
+     forward and backward; (c) one training step of the cell's batch (8
+     x 4096 in 2 microbatches, remat) at full width and depth.
 
 Phases 8-10 run after phase 4; each sets K1's launch counts to 0 before
 it and reads them after.  Phase 11b sets K3's count to 0 before it and
@@ -191,6 +200,9 @@ Phase 17b sets K1's counts to 0 just before its CUs are submitted and
 reads them when all are done (``launches_elastic``).  Phase 18 sets K3's,
 the fused backward's and K3-bwd's counts to 0 before it and checks them
 0 after (its models have no SSM layer; no kernel is on their path).
+Phase 19c sets the grouped products' count (``moe_gemm.ops.CALLS``) and
+the MoE layer's counters to 0 just before its step and reads them after
+it (the ``moe_grouped_gemm`` record's ``launches``).
 
 The second-to-last lines are the ``{"kernels": ...}`` record and the
 card line; the last line is ``{"ok": true, "device": {...}}``.
@@ -427,6 +439,14 @@ HEAD_LR = 1e-3
 # dense first layer and one MoE layer): its 60 did not trace in 600 s
 DRYRUN_MLA = ("deepseek-v2-236b", (("decode_32k", None), ("prefill_32k", 2)))
 DRYRUN_MLA_TIMEOUT = 600
+# phase 19: DeepSeek-V2-Lite's drop-free MoE layer at its training
+# cell's shapes (a microbatch of 4 x 4096 tokens, top-6 of 64 experts,
+# 8 held, d 2048, f 1408, bf16), then one step of the cell's batch
+MOE_ARCH = "deepseek-v2-lite"
+MOE_TOKENS = 4 * 4096
+MOE_STEP = (8, 4096, 2)        # batch, sequence, microbatches
+MOE_SEED = 190
+MOE_TOL = 1e-2                 # of max |want|: one bf16 rounding a side
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4061,6 +4081,173 @@ def kernel_entry(name, source, replaces, launches, err, rows,
             "shapes": rows}
 
 
+def moe_product_bound(rows: int, k: int, n: int, held: int) -> dict:
+    """Least time of one grouped product over `rows` live rows, (rows, k)
+    times each held expert's (k, n) in bf16: the rows, the held weights
+    and the output each moved once, or 2 rows k n FLOPs at the bf16
+    tensor-core peak."""
+    return bound_of(2 * (rows * k + held * k * n + rows * n),
+                    2 * rows * k * n, BF16_TC_FLOP_PER_S)
+
+
+def phase_moe(torch, dev, card: str) -> dict:
+    """19. DeepSeek-V2-Lite's drop-free MoE layer on the card.  (a) At the
+    cell's shapes, each grouped product (``moe_gemm.ops.gmm``: PyTorch's
+    grouped GEMM, x W_gate, x W_up and h W_down) and its two gradients
+    against the plain version (``ref``: ``torch.mm`` per segment) with NaN
+    in the dead rows of its inputs, then ``moe.held_experts`` forward and
+    backward against a loop of ``torch.mm`` through autograd (MOE_TOL of
+    max |want|); (b) each product timed beside its bound, the plain
+    version and ``torch.mm`` per segment on rows already gathered (the
+    library's yardstick), and the layer's products forward and backward;
+    (c) ``ops.CALLS`` and the layer's counters set to 0 just before one
+    training step of the cell's batch at full width and depth (remat),
+    and read after it: 26 MoE layers x microbatches x 3 products x 2
+    (forward and remat's recompute)."""
+    from repro_torch import configs
+    from repro_torch.kernels.moe_gemm import ops, ref
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import moe
+    from repro_torch.train.step import make_train_state, make_train_step
+
+    cfg = configs.get(MOE_ARCH)
+    T, d, f = MOE_TOKENS, cfg.d_model, cfg.moe_d_ff
+    E, k, held = cfg.moe_n_routed, cfg.moe_top_k, cfg.moe_experts_held
+    bf = torch.bfloat16
+    print(f"phase 19a: {MOE_ARCH}'s grouped products at {T} tokens, top-{k} "
+          f"of {E}, {held} held, d {d}, f {f}, bf16")
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(bf)
+    top_p, top_i = torch.softmax(torch.randn(T, E, generator=gen,
+                                             device=dev), -1).topk(k, -1)
+    tok, w, ends, counts = moe.dropfree_plan(top_i.int(), top_p.to(bf),
+                                             held)
+    live = int(ends[-1])
+    x = rnd(T, d)
+    wg, wu = rnd(held, d, f, std=d ** -0.5), rnd(held, d, f, std=d ** -0.5)
+    wd = rnd(held, f, d, std=f ** -0.5)
+    xs = x.index_select(0, tok)
+    h = rnd(tok.shape[0], f)
+    products = {"x W_gate": (xs, wg), "x W_up": (xs, wu),
+                "h W_down": (h, wd)}
+    errs = {}
+    for name, (a, b) in products.items():
+        a = a.clone()
+        a[live:] = float("nan")            # dead rows: never read
+        a.requires_grad_(True)
+        b = b.clone().requires_grad_(True)
+        got, want = ops.gmm(a, b, ends), ref.gmm(a, b, ends)
+        dy = torch.randn_like(got)
+        dy[live:] = float("nan")
+        grads = torch.autograd.grad(got, (a, b), dy)
+        rgrads = torch.autograd.grad(want, (a, b), dy)
+        for what, g_, w_ in (("out", got[:live], want[:live]),
+                             ("rows' grad", grads[0][:live],
+                              rgrads[0][:live]),
+                             ("weights' grad", grads[1], rgrads[1])):
+            check(bool(torch.isfinite(g_).all()), f"19a {name} {what}: "
+                  "non-finite (a dead row reached it)")
+            errs[f"{name} {what}"] = e = _rel_err(torch, g_, w_)
+            check(e <= MOE_TOL, f"19a {name} {what}: rel err {e:.3e}")
+    leaves = [t.clone().requires_grad_(True) for t in (x, wg, wu, wd)]
+    names = ("w_gate", "w_up", "w_down")
+    y = moe.held_experts(dict(zip(names, leaves[1:])), leaves[0], tok, w,
+                         ends)
+    dy = torch.randn_like(y)
+    got = (y, *torch.autograd.grad(y, leaves, dy))
+    rl = [t.clone().requires_grad_(True) for t in (x, wg, wu, wd)]
+    ry = torch.zeros_like(y)
+    segs = ref.segments(ends)
+    for e, lo, hi in segs:
+        t = tok[lo:hi]
+        a = torch.nn.functional.silu(rl[0][t] @ rl[1][e])
+        ry = ry.index_add(0, t, ((a * (rl[0][t] @ rl[2][e])) @ rl[3][e])
+                          * w[lo:hi, None])
+    want = (ry, *torch.autograd.grad(ry, rl, dy))
+    for what, g_, w_ in zip(("y", "dx", "dW_gate", "dW_up", "dW_down"),
+                            got, want):
+        errs[f"held_experts {what}"] = e = _rel_err(torch, g_, w_)
+        check(e <= MOE_TOL, f"19a held_experts {what}: rel err {e:.3e}")
+    print(f"  {live} live rows of {tok.shape[0]}; largest rel err "
+          f"{max(errs.values()):.3e} (limit {MOE_TOL})")
+
+    print("phase 19b: timed beside the bound, the plain version and "
+          "torch.mm per segment")
+    rows = []
+    for name, (a, b) in products.items():
+        parts = [(a[lo:hi].contiguous(), b[e]) for e, lo, hi in segs]
+        bound = moe_product_bound(live, a.shape[1], b.shape[2], held)
+        rec = {"shape": name, "rows": live, "k": a.shape[1],
+               "n": b.shape[2], "held": held, **bound,
+               "ms": cuda_ms(torch, lambda: ops.gmm(a, b, ends)),
+               "plain_ms": cuda_ms(torch, lambda: ref.gmm(a, b, ends)),
+               "library_ms": cuda_ms(torch, lambda: [p @ q for p, q in
+                                                     parts])}
+        rows.append(rec)
+        print(f"  {name}: {rec['ms']:.4f} ms (bound {rec['bound_ms']:.4f}, "
+              f"{rec['bound_by']}); plain {rec['plain_ms']:.4f}; torch.mm "
+              f"per segment {rec['library_ms']:.4f} [{card}]")
+
+    def layer():
+        out = moe.held_experts(dict(zip(names, leaves[1:])), leaves[0], tok,
+                               w, ends)
+        torch.autograd.grad(out, leaves, dy)
+    layer_ms = cuda_ms(torch, layer, reps=5)
+    layer_bound = 3 * sum(r["bound_ms"] for r in rows)
+    print(f"  held_experts forward + backward: {layer_ms:.4f} ms (its 9 "
+          f"products' bound {layer_bound:.4f} ms)")
+    del xs, h, products, leaves, rl, got, want, y, ry
+    torch.cuda.empty_cache()
+
+    B, S, n_mb = MOE_STEP
+    print(f"phase 19c: one training step of {MOE_ARCH} ({B} x {S} in "
+          f"{n_mb} microbatches, remat, full width and depth)")
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(MOE_SEED), device=dev)
+    state = make_train_state(cfg, params)
+    del params
+    step = make_train_step(cfg, n_microbatches=n_mb)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(MOE_SEED))
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:],
+             "mask": torch.ones(B, S, device=dev)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.CALLS = 0
+    moe.reset_counters()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    step_s = time.perf_counter() - t0
+    calls = ops.CALLS
+    c = moe.counters()
+    n_moe = cfg.n_layers - cfg.moe_first_k_dense
+    want_calls = n_moe * n_mb * 3 * 2
+    check(math.isfinite(loss), f"19c loss {loss}")
+    check(calls == want_calls, f"19c: {calls} grouped products, want "
+          f"{want_calls}")
+    check(c is not None and c["calls"] == 2 * n_moe * n_mb,
+          f"19c: the layer's counters read {c}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  loss {loss:.6f}; {calls} grouped products (want "
+          f"{want_calls}); {c['rows'] / c['calls']:.1f} rows a call, "
+          f"busiest held expert {c['imbalance'] / c['calls']:.3f} x the "
+          f"mean; step {step_s:.3f} s (the first: warm-up included); peak "
+          f"{peak:.2f} GB [{card}]")
+    del state, step, batch, tokens
+    torch.cuda.empty_cache()
+    return {"max_rel_err": max(errs.values()), "errs": errs, "rows": rows,
+            "live_rows": live, "layer_ms": layer_ms,
+            "layer_bound_ms": layer_bound, "calls": calls,
+            "want_calls": want_calls,
+            "rows_per_call": c["rows"] / c["calls"],
+            "imbalance": c["imbalance"] / c["calls"], "loss": loss,
+            "step_s": step_s, "peak_memory_gb": peak}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4338,6 +4525,10 @@ def run(torch) -> int:
     dryrun_mla = phase_dryrun_mla(card)
     head_s = time.perf_counter() - t_head
     print(f"  phase 18: {head_s:.3f} s wall")
+    t_moe = time.perf_counter()
+    moe_rec = phase_moe(torch, dev, card)
+    moe_s = time.perf_counter() - t_moe
+    print(f"  phase 19: {moe_s:.3f} s wall")
     t_bytes = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S
     t_ops = sum(s["flops"] for s in shapes) / FP32_FLOP_PER_S
     record = {"kernels": [{
@@ -4413,7 +4604,16 @@ def run(torch) -> int:
         "launches_save_tp_out": save_tp["launches"][1],
         "launches_dryrun": dry_launches[1],
         "layer_grad_max_rel_err": layer_grad_err,
-        "replaced_ms": sum(r["replaced_ms"] for r in ssm_rows)}],
+        "replaced_ms": sum(r["replaced_ms"] for r in ssm_rows)},
+        kernel_entry(
+        "moe_grouped_gemm",
+        "src/repro_torch/kernels/moe_gemm/ops.py (torch._grouped_mm)",
+        "none: src/repro/models/layers/moe.py's capacity einsums (XLA)",
+        moe_rec["calls"], moe_rec["max_rel_err"], moe_rec["rows"],
+        library=True) | {
+        "route": "library", "launches_want": moe_rec["want_calls"],
+        "layer_ms": moe_rec["layer_ms"],
+        "layer_bound_ms": moe_rec["layer_bound_ms"]}],
         "main_path_wall_ms": {f"{n}/{p}": 1e3 * t
                               for (n, p), t in walls.items()},
         "autotune": {fam: {k: rec[k] for k in (
@@ -4432,7 +4632,8 @@ def run(torch) -> int:
         "serve_sharded": serve_sharded, "phase_16_s": shard_s,
         "quickstart": quickstart, "elastic": elastic,
         "phase_17_s": elastic_s, "head_parallel": head_parallel,
-        "dryrun_mla": dryrun_mla, "phase_18_s": head_s}
+        "dryrun_mla": dryrun_mla, "phase_18_s": head_s, "moe": moe_rec,
+        "phase_19_s": moe_s}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -69,7 +69,8 @@ def serve_batch(cfg, *, n_requests: int, prompt_len: int, gen: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b", choices=configs.names())
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    choices=configs.port_names())
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

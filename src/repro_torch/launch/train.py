@@ -67,7 +67,8 @@ def train(cfg, *, steps: int, batch: int = 8, seq: int = 128,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b", choices=configs.names())
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    choices=configs.port_names())
     ap.add_argument("--full-config", action="store_true",
                     help="use the full architecture config")
     ap.add_argument("--steps", type=int, default=100)

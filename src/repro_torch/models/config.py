@@ -38,10 +38,19 @@ class ModelConfig:
     moe_first_k_dense: int = 0      # leading dense layers (DeepSeek-V2 style)
     dense_d_ff: int = 0             # FFN width of those dense layers
     moe_capacity_factor: float = 1.25
+    moe_norm_topk: bool = True      # renormalise the top-k probabilities
+    moe_seq_aux: bool = False       # balance loss per sequence, averaged
+    moe_aux_alpha: float = 0.01     # the balance loss's weight in the loss
+    # drop-free routing: every routed row is computed (rows sorted by
+    # expert, a grouped GEMM over the segments); no capacity, no drop
+    moe_drop_free: bool = False
+    # the experts this device holds, [0, held) of moe_n_routed (one
+    # device's share under expert parallelism); 0 = all.  Drop-free only.
+    moe_experts_held: int = 0
 
     # --- MLA (DeepSeek-V2) ---
     use_mla: bool = False
-    q_lora_rank: int = 0
+    q_lora_rank: Optional[int] = 0  # 0 or None: no query compression
     kv_lora_rank: int = 0
     qk_nope_dim: int = 0
     qk_rope_dim: int = 0
@@ -69,8 +78,16 @@ class ModelConfig:
     # --- numerics ---
     dtype: str = "bfloat16"
     rope_theta: float = 10000.0
+    # YaRN RoPE (DeepSeek-V2): (factor, original max positions,
+    # beta_fast, beta_slow, mscale, mscale_all_dim); () = plain RoPE
+    rope_yarn: Tuple[float, ...] = ()
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # (q, kv) block sizes of chunked attention (sequences above
+    # attention.CHUNK_THRESHOLD), each capped at its sequence; () = the
+    # defaults (Q_CHUNK, KV_CHUNK).  Larger blocks: fewer launches, more
+    # memory for one block's scores.
+    attn_chunks: Tuple[int, ...] = ()
 
     # ------------------------------------------------------------------
     @property
@@ -90,6 +107,22 @@ class ModelConfig:
         if not self.moe_n_routed:
             return 0
         return _round_up(self.moe_n_routed, 16)
+
+    def __post_init__(self):
+        if self.moe_experts_held and not self.moe_drop_free:
+            raise ValueError(
+                f"{self.name}: moe_experts_held needs moe_drop_free (the "
+                "capacity path runs every expert)")
+        if not 0 <= self.moe_experts_held <= self.moe_n_routed:
+            raise ValueError(
+                f"{self.name}: moe_experts_held {self.moe_experts_held} "
+                f"outside [0, {self.moe_n_routed}]")
+
+    @property
+    def moe_n_experts_local(self) -> int:
+        """Expert weights this device holds: ``moe_experts_held`` where
+        set, else every (padded) routed expert."""
+        return self.moe_experts_held or self.moe_n_routed_padded
 
     @property
     def ssm_d_inner(self) -> int:
@@ -123,9 +156,9 @@ class ModelConfig:
 
         def attn_params() -> int:
             if self.use_mla:
-                p = d * self.q_lora_rank + self.q_lora_rank * self.n_heads * (
-                    self.qk_nope_dim + self.qk_rope_dim
-                )
+                qk = self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
+                p = (d * self.q_lora_rank + self.q_lora_rank * qk
+                     if self.q_lora_rank else d * qk)
                 p += d * (self.kv_lora_rank + self.qk_rope_dim)
                 p += self.kv_lora_rank * self.n_heads * (self.qk_nope_dim + self.v_head_dim)
                 p += self.n_heads * self.v_head_dim * d

@@ -34,7 +34,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding import parallel
-from .common import apply_rope, normal_init, rmsnorm, rope_angles
+from .common import (apply_rope, normal_init, rmsnorm, rope_angles,
+                     yarn_mscale)
 
 Params = Dict[str, Any]
 
@@ -107,13 +108,14 @@ def _softmax(logits: torch.Tensor, seq=None) -> torch.Tensor:
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
-         window: int = 0, k_valid: Optional[torch.Tensor] = None
-         ) -> torch.Tensor:
-    """Full-materialization attention. q: (B,Sq,H,hd), k/v: (B,Sk,H,hd)."""
+         window: int = 0, k_valid: Optional[torch.Tensor] = None,
+         scale: Optional[float] = None) -> torch.Tensor:
+    """Full-materialization attention. q: (B,Sq,H,hd), k/v: (B,Sk,H,hd).
+    `scale` multiplies the logits (default ``hd ** -0.5``)."""
     hd = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
-    logits = logits * (hd ** -0.5) + _mask_bias(q_pos, k_pos, causal,
-                                                window, k_valid)
+    logits = logits * (hd ** -0.5 if scale is None else scale) + _mask_bias(
+        q_pos, k_pos, causal, window, k_valid)
     w = _softmax(logits).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
@@ -121,9 +123,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
                  window: int = 0, k_valid: Optional[torch.Tensor] = None,
-                 q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK
-                 ) -> torch.Tensor:
+                 q_chunk: int = Q_CHUNK, kv_chunk: int = KV_CHUNK,
+                 scale: Optional[float] = None) -> torch.Tensor:
     """Online-softmax chunked attention; memory O(q_chunk * kv_chunk).
+    `scale` multiplies the logits (default ``hd ** -0.5``).
 
     Block-masked like the reference: every (q chunk, kv chunk) pair is
     computed, fully masked ones included.  Where autograd records, each
@@ -136,7 +139,7 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nq, nk = Sq // q_chunk, Sk // kv_chunk
     assert Sq % q_chunk == 0 and Sk % kv_chunk == 0, (Sq, Sk, q_chunk,
                                                       kv_chunk)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
 
     def kv_step(m, l, acc, qi, ki, vi, qpi, kpi, kvi):
         logits = torch.einsum("bqhd,bkhd->bhqk", qi, ki).float()
@@ -169,6 +172,15 @@ def chunked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = acc / l.clamp_min(1e-30)[..., None].transpose(1, 2)
         outs.append(out.to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def _chunk_args(cfg, sq: int, sk: int) -> Dict[str, int]:
+    """``chunked_sdpa``'s block sizes from ``cfg.attn_chunks``, each at
+    most its sequence; none where the configuration keeps the defaults."""
+    if not cfg.attn_chunks:
+        return {}
+    qc, kc = cfg.attn_chunks
+    return {"q_chunk": min(qc, sq), "kv_chunk": min(kc, sk)}
 
 
 def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
@@ -222,7 +234,8 @@ def gqa_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
         k.shape[1], device=x.device)
     if max(S, k.shape[1]) > CHUNK_THRESHOLD:
         out = chunked_sdpa(q, kf, vf, positions, k_pos, causal=causal,
-                           window=window, k_valid=k_valid)
+                           window=window, k_valid=k_valid,
+                           **_chunk_args(cfg, S, k.shape[1]))
     else:
         out = sdpa(q, kf, vf, positions, k_pos, causal=causal, window=window,
                    k_valid=k_valid)
@@ -348,16 +361,33 @@ def init_mla(cfg, gen: torch.Generator, lead: Tuple = ()) -> Params:
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     nope, rope, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     dt = cfg.param_dtype
-    return {
-        "w_dq": normal_init(gen, (*lead, d, qr), dt, d ** -0.5),
-        "w_uq": normal_init(gen, (*lead, qr, h, nope + rope), dt, qr ** -0.5),
+    if qr:
+        p = {"w_dq": normal_init(gen, (*lead, d, qr), dt, d ** -0.5),
+             "w_uq": normal_init(gen, (*lead, qr, h, nope + rope), dt,
+                                 qr ** -0.5)}
+    else:   # no query compression: one projection to the heads
+        p = {"w_q": normal_init(gen, (*lead, d, h, nope + rope), dt,
+                                d ** -0.5)}
+    p.update({
         "w_dkv": normal_init(gen, (*lead, d, kvr + rope), dt, d ** -0.5),
         "w_uk": normal_init(gen, (*lead, kvr, h, nope), dt, kvr ** -0.5),
         "w_uv": normal_init(gen, (*lead, kvr, h, vh), dt, kvr ** -0.5),
-        "wo": normal_init(gen, (*lead, h, vh, d), dt, (h * vh) ** -0.5),
-        "q_norm": torch.ones((*lead, qr), device=gen.device),
-        "kv_norm": torch.ones((*lead, kvr), device=gen.device),
-    }
+        "wo": normal_init(gen, (*lead, h, vh, d), dt, (h * vh) ** -0.5)})
+    if qr:
+        p["q_norm"] = torch.ones((*lead, qr), device=gen.device)
+    p["kv_norm"] = torch.ones((*lead, kvr), device=gen.device)
+    return p
+
+
+def mla_scale(cfg) -> float:
+    """MLA's softmax scale: ``(nope + rope) ** -0.5``, with YaRN and
+    ``mscale_all_dim`` times ``yarn_mscale(factor, mscale_all_dim) ** 2``."""
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    yarn = cfg.rope_yarn
+    if yarn and yarn[5]:
+        m = yarn_mscale(yarn[0], yarn[5])
+        scale = scale * m * m
+    return scale
 
 
 def _down(p, key: str, x: torch.Tensor, width: int, tp) -> torch.Tensor:
@@ -374,11 +404,15 @@ def _down(p, key: str, x: torch.Tensor, width: int, tp) -> torch.Tensor:
 
 def _mla_q(cfg, p, x, positions, tp=None):
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
-    q_lat = rmsnorm({"scale": p["q_norm"]},
-                    _down(p, "w_dq", x, cfg.q_lora_rank, tp))
-    q = torch.einsum("bsr,rhk->bshk", q_lat, p["w_uq"])
+    if "w_q" in p:
+        q = torch.einsum("bsd,dhk->bshk", x, p["w_q"])
+    else:
+        q_lat = rmsnorm({"scale": p["q_norm"]},
+                        _down(p, "w_dq", x, cfg.q_lora_rank, tp),
+                        cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", q_lat, p["w_uq"])
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    cos, sin = rope_angles(positions, rope, cfg.rope_theta)
+    cos, sin = rope_angles(positions, rope, cfg.rope_theta, cfg.rope_yarn)
     q_rope = apply_rope(q_rope, cos, sin)
     return q_nope, q_rope
 
@@ -386,9 +420,10 @@ def _mla_q(cfg, p, x, positions, tp=None):
 def _mla_latent(cfg, p, x, positions, tp=None):
     kvr = cfg.kv_lora_rank
     lat = _down(p, "w_dkv", x, kvr + cfg.qk_rope_dim, tp)
-    ckv = rmsnorm({"scale": p["kv_norm"]}, lat[..., :kvr])
+    ckv = rmsnorm({"scale": p["kv_norm"]}, lat[..., :kvr], cfg.norm_eps)
     k_rope = lat[..., kvr:][:, :, None, :]  # single shared rope head
-    cos, sin = rope_angles(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    cos, sin = rope_angles(positions, cfg.qk_rope_dim, cfg.rope_theta,
+                           cfg.rope_yarn)
     k_rope = apply_rope(k_rope, cos, sin)[:, :, 0, :]
     return ckv, k_rope
 
@@ -422,13 +457,15 @@ def mla_forward(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_b], dim=-1)
     # pad v to qk dim for the shared chunked path, then slice back
+    scale = mla_scale(cfg)
     if S > CHUNK_THRESHOLD:
         vp = torch.nn.functional.pad(v, (0, q.shape[-1] - vh))
         out = chunked_sdpa(q, k, vp, positions, positions, causal=True,
-                           k_valid=k_valid)[..., :vh]
+                           k_valid=k_valid, scale=scale,
+                           **_chunk_args(cfg, S, S))[..., :vh]
     else:
         out = sdpa(q, k, v, positions, positions, causal=True,
-                   k_valid=k_valid)
+                   k_valid=k_valid, scale=scale)
     cache = {"ckv": ckv, "k_rope": k_rope}
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return (out if tp is None else tp.reduce_out(out)), cache
@@ -485,7 +522,7 @@ def mla_decode(cfg, p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     logits = torch.einsum("bshr,btr->bhst", q_lat, cache["ckv"]).float()
     logits = logits + torch.einsum("bshk,btk->bhst", q_rope,
                                    cache["k_rope"]).float()
-    logits = logits * (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    logits = logits * mla_scale(cfg)
     slots = torch.arange(offset, offset + Sc, device=x.device)
     valid = slots[None, :] <= pos[:, None]
     if start is not None:

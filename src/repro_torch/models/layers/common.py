@@ -7,6 +7,7 @@ f32.  Inits draw from an explicit ``torch.Generator`` on its own device;
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import torch
@@ -34,16 +35,49 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- RoPE
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions: (...,) int -> cos/sin of shape (..., head_dim//2)."""
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor: 1 + 0.1 mscale ln(factor) above a factor
+    of 1, else 1."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_freqs(pw: torch.Tensor, head_dim: int, theta: float, yarn
+                ) -> torch.Tensor:
+    """YaRN's inverse frequencies from ``pw = theta ** (2i / head_dim)``:
+    ``1 / (factor pw)`` below the correction range that ``beta_fast``
+    and ``beta_slow`` rotations bound, ``1 / pw`` above it, a linear ramp
+    between."""
+    factor, orig, beta_fast, beta_slow = yarn[:4]
+
+    def dim_of(rotations):
+        return (head_dim * math.log(orig / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(dim_of(beta_fast)), 0)
+    high = min(math.ceil(dim_of(beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    i = torch.arange(head_dim // 2, dtype=torch.float32, device=pw.device)
+    extra = 1.0 - torch.clamp((i - low) / (high - low), 0, 1)
+    return 1.0 / (factor * pw) * (1 - extra) + 1.0 / pw * extra
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                yarn=()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (...,) int -> cos/sin of shape (..., head_dim//2).
+    With `yarn` (``ModelConfig.rope_yarn``) the frequencies are YaRN's and
+    cos/sin are scaled by ``yarn_mscale(factor, mscale) /
+    yarn_mscale(factor, mscale_all_dim)``."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    pw = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                device=positions.device), exps)
+    freqs = _yarn_freqs(pw, head_dim, theta, yarn) if yarn else 1.0 / pw
     ang = positions.float()[..., None] * freqs  # (..., half)
-    return torch.cos(ang), torch.sin(ang)
+    if not yarn:
+        return torch.cos(ang), torch.sin(ang)
+    scale = yarn_mscale(yarn[0], yarn[4]) / yarn_mscale(yarn[0], yarn[5])
+    return torch.cos(ang) * scale, torch.sin(ang) * scale
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor

@@ -314,9 +314,10 @@ def block_forward(cfg, seg: Segment, p: Params, x, positions, enc_out=None,
                     common.mlp(p["mlp"], h_, tp), None), h)
         else:
             # the router and the experts see the whole sequence
-            out, aux = _on_sequence(groups, None, lambda h_, _: (
-                moe_lib.moe_forward(cfg, p["moe"], h_, groups=moe_groups,
-                                    ep_axis=moe_ep_axis, ctx=ctx)), h)
+            with forward_span("model.moe"):
+                out, aux = _on_sequence(groups, None, lambda h_, _: (
+                    moe_lib.moe_forward(cfg, p["moe"], h_, groups=moe_groups,
+                                        ep_axis=moe_ep_axis, ctx=ctx)), h)
         x = x + out
     return x, cache, aux
 
@@ -650,10 +651,11 @@ def _head_nll(cfg, params: Params, batch: Dict[str, torch.Tensor], ctx, x
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, aux_coef: float = 0.01, remat: bool = True, act_spec=None,
-            moe_groups: int = 1, moe_ep_axis=None,
+            *, aux_coef: Optional[float] = None, remat: bool = True,
+            act_spec=None, moe_groups: int = 1, moe_ep_axis=None,
             remat_policy=None) -> torch.Tensor:
-    """Mean next-token NLL plus `aux_coef` times the MoE aux loss;
+    """Mean next-token NLL plus `aux_coef` (default the configuration's
+    ``moe_aux_alpha``) times the MoE aux loss;
     differentiable (``loss.backward()`` or ``torch.autograd.grad``).
     On a sharded step (DTensor params) it is the global batch's loss on
     every rank, and the gradients reach the DTensor params in their own
@@ -664,6 +666,8 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"loss_fn: unknown remat_policy {remat_policy!r}; "
                          f"known: {sorted(k for k in REMAT_POLICIES if k)}")
+    if aux_coef is None:
+        aux_coef = cfg.moe_aux_alpha
     ctx, batch = _sharded_step(params, batch, act_spec)
     x, aux = _hidden_states(cfg, params, batch, remat=remat,
                             moe_groups=moe_groups, moe_ep_axis=moe_ep_axis,

@@ -42,6 +42,7 @@ _ROLE_TABLE: Dict[str, Tuple[Optional[str], ...]] = {
     # MLA (latent dims FSDP-sharded for storage; gathered at use)
     "w_dq": ("fsdp", "tp"),
     "w_uq": ("fsdp", "tp", None),
+    "w_q": ("fsdp", "tp", None),       # MLA without query compression
     "w_dkv": ("fsdp", "tp"),
     "w_uk": ("fsdp", "tp", None),
     "w_uv": ("fsdp", "tp", None),

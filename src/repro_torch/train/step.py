@@ -16,7 +16,7 @@ AdamW step updates each rank's shards (ZeRO).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 # loaded here, not lazily: torch imports ``torch._dynamo`` at the first
@@ -107,12 +107,14 @@ def value_and_grad(loss_of, params: Any) -> Tuple[torch.Tensor, Any]:
 
 def make_train_step(cfg: ModelConfig, *, hyper: adamw.Hyper = adamw.Hyper(),
                     n_microbatches: int = 1, remat: bool = True,
-                    act_spec=None, lr_schedule=None, aux_coef: float = 0.01,
+                    act_spec=None, lr_schedule=None,
+                    aux_coef: Optional[float] = None,
                     moe_groups: int = 1, moe_ep_axis=None,
                     accum_dtype: torch.dtype = torch.float32,
                     remat_policy=None):
     """Build the (state, batch) -> (state, metrics) step function.
-    ``remat_policy`` is passed to ``loss_fn``
+    ``aux_coef`` weighs the MoE balance loss (default the configuration's
+    ``moe_aux_alpha``).  ``remat_policy`` is passed to ``loss_fn``
     (``transformer.REMAT_POLICIES``; an unknown name raises)."""
     lr_schedule = lr_schedule or (lambda s: schedule.warmup_cosine(s))
 
